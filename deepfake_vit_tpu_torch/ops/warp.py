@@ -1,0 +1,230 @@
+"""Batched affine warp with bilinear sampling and constant border.
+
+``warp_affine`` is the exact gather formulation (cv2 INTER_LINEAR +
+BORDER_CONSTANT=0) in float32, the reference the kernels are judged by.
+``warp_affine_windowed(fractional=True)`` is the serving path: per face, a
+window of ``window``² pixels resampled from the original-resolution frame
+at the factor ``r`` that fits the output quad (``window_geometry_frac``),
+then warped to the output size — both steps through the hand-written
+kernels of ``ops/warp_kernel.py``.
+
+The geometry decides which pixels a crop reads, so it is computed in
+float32 with the JAX package's operation order: the 16-aligned strip
+start, ``r`` ceiled to the 2⁻¹⁶ grid, integer ``off_y``/``x0f``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .umeyama import invert_affine
+from .warp_kernel import crop_frac, warp_affine_legacy
+
+
+def _bilinear_sample_one(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+                         border_value: float) -> torch.Tensor:
+    """img: (H, W, C); xs, ys: (Ho, Wo) source coords. Returns (Ho, Wo, C)."""
+    H, W = img.shape[0], img.shape[1]
+    x0 = torch.floor(xs)
+    y0 = torch.floor(ys)
+    x1 = x0 + 1.0
+    y1 = y0 + 1.0
+    wx1 = xs - x0
+    wx0 = 1.0 - wx1
+    wy1 = ys - y0
+    wy0 = 1.0 - wy1
+
+    def tap(xi, yi, w):
+        valid = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
+        xc = xi.clamp(0, W - 1).long()
+        yc = yi.clamp(0, H - 1).long()
+        vals = img[yc, xc]
+        vals = torch.where(valid[..., None], vals, torch.full_like(vals, border_value))
+        return w[..., None] * vals
+
+    return (
+        tap(x0, y0, wx0 * wy0)
+        + tap(x1, y0, wx1 * wy0)
+        + tap(x0, y1, wx0 * wy1)
+        + tap(x1, y1, wx1 * wy1)
+    )
+
+
+def warp_affine(images: torch.Tensor, matrices: torch.Tensor, out_size: Tuple[int, int],
+                border_value: float = 0.0, inverse: bool = False) -> torch.Tensor:
+    """Batched cv2.warpAffine equivalent, float32.
+
+    images: (B, H, W, C); matrices: (B, 2, 3) src→dst affines (inverted
+    here unless ``inverse``). Returns (B, Ho, Wo, C).
+    """
+    Ho, Wo = out_size
+    images = images.float()
+    A_inv = matrices if inverse else invert_affine(matrices)
+    dev = images.device
+    ys, xs = torch.meshgrid(
+        torch.arange(Ho, dtype=torch.float32, device=dev),
+        torch.arange(Wo, dtype=torch.float32, device=dev),
+        indexing="ij",
+    )
+    outs = []
+    for img, A in zip(images, A_inv.float()):
+        sx = A[0, 0] * xs + A[0, 1] * ys + A[0, 2]
+        sy = A[1, 0] * xs + A[1, 1] * ys + A[1, 2]
+        outs.append(_bilinear_sample_one(img, sx, sy, border_value))
+    return torch.stack(outs)
+
+
+def _avg_pool2(images: torch.Tensor) -> torch.Tensor:
+    B, H, W, C = images.shape
+    return images.reshape(B, H // 2, 2, W // 2, 2, C).mean(dim=(2, 4))
+
+
+def _quad_extent(A_inv: torch.Tensor, out_size: Tuple[int, int]):
+    """Level-0 output-quad extent and center: (a, b, c, d, e, f, span_x,
+    span_y, cx, cy) — the affine coefficients and the axis-aligned quad
+    bounding-box span/center in source pixels."""
+    Ho, Wo = out_size
+    a, b, c = A_inv[:, 0, 0], A_inv[:, 0, 1], A_inv[:, 0, 2]
+    d, e, f = A_inv[:, 1, 0], A_inv[:, 1, 1], A_inv[:, 1, 2]
+    jm, im = float(Wo - 1), float(Ho - 1)
+    span_x = a.abs() * jm + b.abs() * im
+    span_y = d.abs() * jm + e.abs() * im
+    cx = (a * jm + b * im) * 0.5 + c
+    cy = (d * jm + e * im) * 0.5 + f
+    return a, b, c, d, e, f, span_x, span_y, cx, cy
+
+
+def frac_window_levels(src_h: int, window: int) -> int:
+    """Strip-size buckets: rows at bucket ℓ are ``min(window·2ˡ, src_h)``;
+    the top bucket is the whole frame height."""
+    levels = 1
+    while (window << (levels - 1)) < src_h:
+        levels += 1
+    return levels
+
+
+def window_geometry_frac(A_inv: torch.Tensor, out_size: Tuple[int, int],
+                         src_hw: Tuple[int, int], window: int, levels: int,
+                         y_align: int = 8):
+    """Fractional-scale window geometry: per-face resample factor ``r``.
+
+    Returns (level (N,) int32 bucket, strip0s (levels, N) int32 level-0
+    strip start rows, r (N,) f32 on the 2⁻¹⁶ grid, off_y (N,) f32
+    strip-relative start, x0f (N,) f32 absolute x start, A_win (N, 2, 3)
+    dst→window affines).
+    """
+    Hs, Ws = src_hw
+    if window % y_align:
+        raise ValueError(f"fractional window must be {y_align}-row aligned")
+    A_inv = A_inv.float()
+    a, b, c, d, e, f, span_x, span_y, cx, cy = _quad_extent(A_inv, out_size)
+    dev = A_inv.device
+
+    rows_l = [min(window << l, Hs) for l in range(levels)]
+    # Quad + one window-px bilinear margin per side + 2 px for the integer
+    # snap of the starts: window·r ≥ span + 2r + 2, ceiled to 2⁻¹⁶.
+    r = ((torch.maximum(span_x, span_y) + 2.0) / float(window - 2)).clamp_min(1.0)
+    r = torch.ceil(r * 65536.0) / 65536.0
+
+    # Bucket ℓ must hold the fractional window plus alignment slack; bucket
+    # 0 also accepts r == 1 quads that leave room for the aligned placement.
+    level = torch.zeros(a.shape, dtype=torch.int32, device=dev)
+    for l in range(levels - 1):
+        fit = window * r + 2.0 * y_align <= rows_l[l]
+        if l == 0:
+            fit = fit | ((r <= 1.0) & (span_y + 2.0 + 2.0 * y_align <= window))
+        level = level + (~fit).to(torch.int32)
+
+    strip0s = []
+    for l in range(levels):
+        s_raw = torch.floor((cy - rows_l[l] / 2) / y_align).to(torch.int32) * y_align
+        strip0s.append(s_raw.clamp(0, (Hs - rows_l[l]) // y_align * y_align))
+    strip0s = torch.stack(strip0s)
+
+    idx = torch.arange(level.shape[0], device=dev)
+    strip0 = strip0s[level.long(), idx].float()
+    rows_sel = torch.tensor(rows_l, dtype=torch.float32, device=dev)[level.long()]
+    # Integer starts keep r == 1 windows bitwise-exact; A_win absorbs the
+    # snap. A window taller than its strip (top bucket only) slides so the
+    # whole frame stays covered.
+    wr_y = window * r
+    start_y = torch.floor(
+        torch.clamp(
+            cy - wr_y * 0.5,
+            torch.minimum(strip0, strip0 + rows_sel - wr_y),
+            torch.maximum(strip0, strip0 + rows_sel - wr_y),
+        )
+    )
+    off_y = start_y - strip0
+    wr = window * r
+    zero = torch.zeros_like(wr)
+    x0f = torch.floor(
+        torch.clamp(cx - wr * 0.5, torch.minimum(zero, Ws - wr), torch.maximum(zero, Ws - wr))
+    )
+
+    # Window pixel centers sample source y = start + (i + 0.5)·r − 0.5.
+    sh = 0.5 - 0.5 * r
+    A_win = torch.stack(
+        [
+            torch.stack([a / r, b / r, (c - x0f + sh) / r], -1),
+            torch.stack([d / r, e / r, (f - start_y + sh) / r], -1),
+        ],
+        dim=1,
+    )
+    return level, strip0s, r, off_y, x0f, A_win
+
+
+def warp_affine_windowed(
+    images: torch.Tensor,
+    matrices: torch.Tensor,
+    out_size: Tuple[int, int],
+    window: int = 160,
+    inverse: bool = False,
+    frame_indices: Optional[torch.Tensor] = None,
+    fractional: bool = False,
+    tap_construction: str = "legacy",
+) -> torch.Tensor:
+    """Affine warp through a per-face resampled window (fractional path).
+
+    Same contract as :func:`warp_affine` with border_value=0: images
+    (B, Hs, Ws, C) are cast to bf16, ``frame_indices`` (N,) maps each of
+    the N matrices to its frame (default identity). Returns (N, Ho, Wo, C)
+    float32. Bitwise equal to the legacy-tap warp of the full frame
+    whenever the quad fits the window at r = 1.
+    """
+    if not fractional:
+        raise NotImplementedError(
+            "the pooled (non-fractional) windowed warp is not ported yet: it "
+            "needs the crop_window_pool kernel, a later port slice"
+        )
+    if tap_construction != "legacy":
+        raise NotImplementedError(
+            f"tap construction {tap_construction!r} is not ported yet (a later "
+            "port slice); only 'legacy' is"
+        )
+    B, Hs, Ws, C = images.shape
+    N = matrices.shape[0]
+    if Hs % 16:
+        # The 16-aligned strip start cannot otherwise reach the bottom
+        # Hs % 16 rows: pad zero rows, which sample as border 0 exactly.
+        images = F.pad(images, (0, 0, 0, 0, 0, -Hs % 16))
+        Hs += -Hs % 16
+    if min(Hs, Ws) < window:
+        raise ValueError(f"window {window} exceeds source {Hs}×{Ws}")
+    if window % 8:
+        raise ValueError("window must be a multiple of 8")
+
+    A_inv = matrices if inverse else invert_affine(matrices)
+    levels = frac_window_levels(Hs, window)
+    level, strip0s, r, off_y, x0f, A_win = window_geometry_frac(
+        A_inv, out_size, (Hs, Ws), window, levels, y_align=16
+    )
+    strip0 = strip0s[level.long(), torch.arange(N, device=level.device)]
+    crop = crop_frac(
+        images.to(torch.bfloat16).reshape(B, Hs, Ws * C), strip0, level, r,
+        off_y, x0f, window, C, frame_idx=frame_indices,
+    ).reshape(N, window, window, C)
+    return warp_affine_legacy(crop, A_win, out_size, inverse=True)
