@@ -45,10 +45,10 @@ __device__ __forceinline__ float window_coord(float off, int i, float r) {
 // slow there; here one thread computes one output element (n, o, jx, c)
 // from at most 2x2 source pixels read directly from the frame.
 //
-// Bound: bytes. Per face the kernel must read the pixels its taps touch
-// (about (window*r + 1)^2 * C bf16 values) and write window^2 * C bf16
-// values; the scalars are 24 bytes. At the H100's 3.35 TB/s that is the
-// floor chip_smoke.py reports as bound_ms.
+// Bound: bytes. Per face the kernel must read the distinct source pixels
+// its nonzero-weight taps touch (about (window*r)^2 * C bf16 values) and
+// write window^2 * C bf16 values; the scalars are 24 bytes. At the H100's
+// 3.35 TB/s that is the floor chip_smoke.py reports as bound_ms.
 // ---------------------------------------------------------------------------
 __global__ void crop_frac_kernel(const __nv_bfloat16* __restrict__ frames,
                                  __nv_bfloat16* __restrict__ out,
@@ -122,7 +122,8 @@ __global__ void crop_frac_kernel(const __nv_bfloat16* __restrict__ frames,
 // channel-stacked matmul over the whole source height; here one thread
 // computes one output pixel for all C channels from its 2x2 source taps.
 //
-// Bound: bytes. It reads the (N, Hs, Ws, C) bf16 crop once and writes the
+// Bound: bytes. It must read the crop pixels that the output points'
+// nonzero-weight taps touch (bf16, at most the whole crop) and write the
 // (N, Ho, Wo, C) f32 output once; at the H100's 3.35 TB/s that is the floor
 // chip_smoke.py reports as bound_ms.
 // ---------------------------------------------------------------------------

@@ -83,7 +83,42 @@ def test_umeyama_closed_form_matches_svd():
                                rtol=1e-6, atol=1e-3)
 
 
-@pytest.mark.parametrize("normalize", ["global_max", "per_sample", "none"])
+def _degenerate_landmarks(case, rng):
+    src = rng.uniform(0, 200, (4, 5, 2)).astype(np.float32)
+    dst = rng.uniform(0, 200, (4, 5, 2)).astype(np.float32)
+    if case == "collinear_src":  # rank-1 covariance
+        u = rng.uniform(-50, 50, (4, 5, 1))
+        src = (np.asarray([100.0, 80.0]) + u * np.asarray([0.8, 0.6])).astype(np.float32)
+    elif case == "coincident_src":  # zero covariance and zero source variance
+        # Integer-valued so the mean is exact and the deviations are exactly
+        # 0. With a mean that rounds, both solves divide float32 rounding
+        # noise by noise and land on different, equally meaningless affines.
+        src[:] = np.round(src[:, :1])
+    elif case == "coincident_dst":  # zero covariance
+        dst[:] = dst[:, :1]
+    elif case == "mirrored_square":  # covariance diag(-k, k): every rotation ties
+        sq = np.asarray([[-1, -1], [1, -1], [1, 1], [-1, 1], [0, 0]], np.float32) * 30
+        src = np.broadcast_to(sq + 100, (4, 5, 2)).copy()
+        dst = (sq * np.asarray([-1, 1], np.float32) + 50).astype(np.float32)[None].repeat(4, 0)
+    return src, dst
+
+
+@pytest.mark.parametrize("case", ["collinear_src", "coincident_src", "coincident_dst",
+                                  "mirrored_square"])
+def test_umeyama_degenerate_covariance_matches_svd(case):
+    """Degenerate landmark sets, where the SVD's rotation is not unique or
+    the scale is 0: the closed form must give the same affine as the JAX
+    SVD solve (scale 0 makes the rotation irrelevant). Tolerance 1e-4
+    relative, 1e-3 px absolute on the translation: float32 solves."""
+    src, dst = _degenerate_landmarks(case, np.random.default_rng(2))
+    aj = np.asarray(jumeyama.umeyama(jnp.asarray(src), jnp.asarray(dst)))
+    at = tumeyama.umeyama(_t(src), _t(dst)).numpy()
+    assert np.isfinite(at).all()
+    np.testing.assert_allclose(at[:, :, :2], aj[:, :, :2], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(at[:, :, 2], aj[:, :, 2], rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("normalize",["global_max", "per_sample", "none"])
 def test_landmark_gaussian_map(normalize):
     rng = np.random.default_rng(2)
     lms = rng.uniform(0, 224, (3, 5, 2)).astype(np.float32)
