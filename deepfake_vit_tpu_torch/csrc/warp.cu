@@ -1,5 +1,6 @@
-// Serving-warp kernels for Hopper (sm_90a): fractional window crop and the
-// legacy-tap affine warp. Plain C interface, loaded with ctypes by
+// Serving-warp kernels for Hopper (sm_90a): fractional window crop, pooled
+// window crop and the legacy-tap affine warp. Plain C interface, loaded with
+// ctypes by
 // deepfake_vit_tpu_torch/ops/warp_kernel.py, whose plain PyTorch versions
 // compute the same functions with the same rounding points.
 //
@@ -10,8 +11,8 @@
 //     1 - frac(s), which rounds differently;
 //   * each two-tap sum in f32 of exact bf16 x bf16 products, rounded once.
 //
-// Both kernels are bound by device-memory bytes: a few operations per byte.
-// They gather straight from device memory in ONE pass and keep every
+// All three kernels are bound by device-memory bytes: a few operations per
+// byte. They gather straight from device memory in ONE pass and keep every
 // intermediate (tap weights, the vertical pass) in registers — no strip
 // copy, no tap planes, nothing written back but the output. Staging the
 // source tile in shared memory is left for later work.
@@ -114,6 +115,65 @@ __global__ void crop_frac_kernel(const __nv_bfloat16* __restrict__ frames,
 }
 
 // ---------------------------------------------------------------------------
+// crop_pool
+//
+// Replaces deepfake_vit_tpu/ops/pallas/warp_kernel.py::_crop_pool_kernel
+// (launcher crop_window_pool_pallas, constructions "legacy" and "mxu": both
+// compute this function). The TPU kernel DMAs a strip of window*2^l rows and
+// pools and crops it with two selection matmuls Vp @ strip @ Hp; here one
+// thread computes one output element (n, o, j, c) from its own 2^l x 2^l
+// block of level-0 pixels:
+//   t1[s]  = bf16(sum_{r < 2^l} 2^-l * frame[y0_l0 + (o << l) + r, s, c])
+//   out    = bf16(sum_{s < 2^l} 2^-l * t1[((x0 + j) << l) + s])
+// with f32 sums and the TPU kernel's one intermediate rounding to bf16.
+// Blocks of different outputs are disjoint, so every source pixel is read
+// exactly once and nothing is staged.
+//
+// Bound: bytes. Per face (window * 2^l)^2 * C bf16 source values read and
+// window^2 * C written, plus 16 bytes of scalars; at the H100's 3.35 TB/s
+// that is the floor chip_smoke.py reports as bound_ms.
+// ---------------------------------------------------------------------------
+__global__ void crop_pool_kernel(const __nv_bfloat16* __restrict__ frames,
+                                 __nv_bfloat16* __restrict__ out,
+                                 const int* __restrict__ y0_l0,
+                                 const int* __restrict__ x0,
+                                 const int* __restrict__ level,
+                                 const int* __restrict__ frame_idx,
+                                 int n_faces, int H, int W, int C, int window) {
+  const long long total = (long long)n_faces * window * window * C;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int c = (int)(idx % C);
+  long long rest = idx / C;
+  const int j = (int)(rest % window);
+  rest /= window;
+  const int o = (int)(rest % window);
+  const int n = (int)(rest / window);
+
+  const int l = level[n];
+  const int side = 1 << l;
+  const float inv = 1.0f / (float)side;  // a power of two: products are exact
+  const int row0 = y0_l0[n] + (o << l);
+  const int col0 = (x0[n] + j) << l;
+  const __nv_bfloat16* frame = frames + (long long)frame_idx[n] * H * W * C;
+
+  float acc = 0.0f;
+  for (int s = 0; s < side; ++s) {
+    const int col = col0 + s;
+    if (col < 0 || col >= W) continue;
+    float t1 = 0.0f;
+    for (int r = 0; r < side; ++r) {
+      const int row = row0 + r;
+      if (row < 0 || row >= H) continue;
+      const float px = __bfloat162float(frame[((long long)row * W + col) * C + c]);
+      t1 = __fadd_rn(t1, __fmul_rn(inv, px));
+    }
+    acc = __fadd_rn(acc, __fmul_rn(inv, round_bf16(t1)));
+  }
+  out[idx] = __float2bfloat16_rn(acc);
+}
+
+// ---------------------------------------------------------------------------
 // warp_affine_legacy
 //
 // Replaces deepfake_vit_tpu/ops/pallas/warp_kernel.py::_warp_kernel
@@ -206,6 +266,20 @@ int dfv_crop_frac_bf16(const void* frames, void* out, const void* strip0,
         (const __nv_bfloat16*)frames, (__nv_bfloat16*)out, (const int*)strip0,
         (const int*)level, (const int*)frame_idx, (const int*)rfp,
         (const int*)off_y, (const int*)x0f, n_faces, H, W, C, window);
+  }
+  return (int)cudaGetLastError();
+}
+
+int dfv_crop_pool_bf16(const void* frames, void* out, const void* y0_l0,
+                       const void* x0, const void* level, const void* frame_idx,
+                       int n_faces, int H, int W, int C, int window,
+                       void* stream) {
+  const long long total = (long long)n_faces * window * window * C;
+  if (total > 0) {
+    crop_pool_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)frames, (__nv_bfloat16*)out, (const int*)y0_l0,
+        (const int*)x0, (const int*)level, (const int*)frame_idx, n_faces, H, W,
+        C, window);
   }
   return (int)cudaGetLastError();
 }

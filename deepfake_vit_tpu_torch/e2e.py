@@ -2,19 +2,24 @@
 
 One call runs the SCRFD forward (its first conv folding the 2× pool from
 serving to detection resolution), anchor decode, best-face selection,
-Umeyama solve, the fractional windowed warp (hand-written crop and warp
-kernels), quality scoring, ImageNet normalization and the
-EfficientNet + attention classifier — all on the pipeline's device, with
-static shapes and no host round-trip between stages.
+Umeyama solve, the windowed warp (hand-written crop and warp kernels),
+quality scoring, ImageNet normalization and the EfficientNet + attention
+classifier — all on the pipeline's device, with static shapes and no host
+round-trip between stages.
 
-This slice of the port covers ``keep_top_k=1``, the fractional windowed
-warp with legacy taps, bf16 or float32, and the SCRFD detector family.
-Every other option of the JAX pipeline raises ``NotImplementedError``.
+Ported: ``keep_top_k=1``; the pooled windowed warp (the class default) and
+the fractional one, both with legacy taps; bf16 or float32; the SCRFD
+detector family, in its own dtype or as the int8 graph
+(``use_int8_detector``); the int8 late-stage classifier tail
+(``use_int8_tail``) with ``calibrate_int8``/``calibrate_int8_detector``;
+``compute_quality=False``. Every other option of the JAX pipeline
+(``keep_top_k > 1``, other tap modes, the lite detector, ``use_s2d_early``,
+``use_fused_backbone``) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -22,7 +27,9 @@ import torch
 from .device import resolve_device
 from .models.bridge import load_flax_variables
 from .models.feature_extractor import create_model_from_config
+from .models.int8_tail import Int8TailRunner, calibrate_act_scales, default_tail_start
 from .models.layers import init_weights
+from .models.scrfd_int8 import ScrfdInt8Runner, calibrate_det_act_scales
 from .ops.anchors import STRIDES, all_anchor_centers, decode_boxes, decode_landmarks
 from .ops.image import normalize_imagenet
 from .ops.quality import overall_quality
@@ -33,7 +40,7 @@ from .preprocessing.aligner import DEFAULT_REFERENCE_LANDMARKS, _LANDMARK_ORDER
 from .preprocessing.detector import build_detection_net, default_weights_path
 from .utils.msgpack import msgpack_restore
 
-_NEXT_SLICE = "the int8 slice, the next slice of the port"
+_NEXT_SLICE = "the multi-face slice (NMS and shared-frame crops), the next slice of the port"
 _LATER_SLICE = "a later slice of the port"
 
 
@@ -49,6 +56,17 @@ class FusedPipeline:
     yields its best face with a validity flag. Weights come from
     ``init_variables`` (seeded) or ``load_variables`` (seeded, then the
     committed detector weights and an optional classifier checkpoint).
+
+    ``use_int8_tail`` runs the backbone from block ``int8_tail_start``
+    (default: ``default_tail_start``) through the s8 GEMM kernel and
+    ``use_int8_detector`` the detector's wide convs through the s8 conv
+    kernel; ``int8_act_scales``/``det_act_scales`` are calibrated static
+    activation scales (None → dynamic per-image scales), set here or by
+    ``calibrate_int8``/``calibrate_int8_detector``. The int8 runners are
+    built from the networks' weights by ``init_variables`` and
+    ``load_variables``; call ``build_int8_runners`` after changing the
+    weights any other way. ``compute_quality=False`` skips quality scoring
+    (quality 1, valid).
     """
 
     def __init__(
@@ -65,18 +83,20 @@ class FusedPipeline:
         dtype: torch.dtype = torch.bfloat16,
         use_fused_backbone: bool = False,
         use_int8_tail: bool = False,
+        int8_tail_start: Optional[int] = None,
+        int8_act_scales: Optional[List[Dict[str, float]]] = None,
         use_s2d_early: bool = False,
         use_int8_detector: bool = False,
+        det_act_scales: Optional[Dict[str, float]] = None,
         keep_top_k: int = 1,
+        compute_quality: bool = True,
         detector_arch: str = "scrfd",
         device: Optional[Union[str, torch.device]] = None,
     ):
-        if use_int8_tail:
-            raise _not_ported("use_int8_tail (s8 GEMM late-stage tail)", _NEXT_SLICE)
-        if use_int8_detector:
-            raise _not_ported("use_int8_detector (s8 implicit-GEMM SCRFD convs)", _NEXT_SLICE)
+        if use_int8_detector and detector_arch != "scrfd":
+            raise ValueError("use_int8_detector supports the scrfd family only")
         if keep_top_k != 1:
-            raise _not_ported("keep_top_k > 1 (multi-face serving with NMS)", _LATER_SLICE)
+            raise _not_ported("keep_top_k > 1 (multi-face serving with NMS)", _NEXT_SLICE)
         if warp_tap_mode != "legacy":
             raise _not_ported(f"warp_tap_mode={warp_tap_mode!r}", _LATER_SLICE)
         if detector_arch != "scrfd":
@@ -92,10 +112,17 @@ class FusedPipeline:
         self.serving_size = tuple(serving_size or detection_input_size)
         self.output_size = tuple(output_size)
         self.warp_window = warp_window
+        self.warp_fractional = warp_fractional
         self.confidence_threshold = confidence_threshold
+        self.compute_quality = compute_quality
+        self.use_int8_tail = use_int8_tail
+        self.int8_tail_start = int8_tail_start
+        self.int8_act_scales = int8_act_scales
+        self.use_int8_detector = use_int8_detector
+        self.det_act_scales = det_act_scales
+        self._tail: Optional[Int8TailRunner] = None
+        self._det_int8: Optional[ScrfdInt8Runner] = None
         self._windowed = min(self.serving_size) > warp_window
-        if self._windowed and not warp_fractional:
-            raise _not_ported("warp_fractional=False (pooled windowed warp)", _LATER_SLICE)
         ratio = self.serving_size[0] // self.input_size[0]
         if (
             self.serving_size[0] != self.input_size[0] * ratio
@@ -133,6 +160,7 @@ class FusedPipeline:
         init_weights(self.detector, seed)
         init_weights(self.model, seed + 1)
         self._initialized = True
+        self.build_int8_runners()
         return self.detector, self.model
 
     def load_variables(self, seed: int = 0, classifier_checkpoint: Optional[str] = None,
@@ -152,7 +180,73 @@ class FusedPipeline:
                                              "batch_stats": ckpt["batch_stats"]})
         if detector_weights:
             load_flax_variables(self.detector, msgpack_restore(detector_weights))
+        self.build_int8_runners()
         return self.detector, self.model
+
+    # ------------------------------------------------------------------
+    @property
+    def _tail_start(self) -> int:
+        if self.int8_tail_start is not None:
+            return self.int8_tail_start
+        return default_tail_start(self.model.variant)
+
+    def build_int8_runners(self) -> None:
+        """(Re)build the int8 runners from the networks' current weights and
+        the stored activation scales: BatchNorm folding and weight
+        quantization happen here, once, not in ``forward``."""
+        if self.use_int8_tail:
+            self._tail = Int8TailRunner(self.model.feature_extractor.backbone,
+                                        start_block=self._tail_start,
+                                        act_scales=self.int8_act_scales)
+        if self.use_int8_detector:
+            self._det_int8 = ScrfdInt8Runner(self.detector, act_scales=self.det_act_scales,
+                                             dtype=self.dtype)
+
+    def calibrate_int8(self, faces, batch_size: int = 32) -> List[Dict[str, float]]:
+        """Calibrate static int8 activation scales on aligned face crops.
+
+        ``faces``: (N, *output_size, 3) RGB [0, 255], representative aligned
+        faces. Stores the scales and rebuilds the tail runner with them.
+        """
+        if not self.use_int8_tail:
+            raise ValueError("calibrate_int8 requires use_int8_tail=True")
+        if not self._initialized:
+            raise RuntimeError("call init_variables or load_variables before calibrate_int8")
+        faces = torch.as_tensor(faces).to(self.device, torch.float32)
+        norm = normalize_imagenet(faces / 255.0)
+        self.int8_act_scales = calibrate_act_scales(
+            self.model.feature_extractor.backbone,
+            [norm[i:i + batch_size].to(self.dtype) for i in range(0, norm.shape[0], batch_size)],
+            start_block=self._tail_start,
+        )
+        self.build_int8_runners()
+        return self.int8_act_scales
+
+    def calibrate_int8_detector(self, frames, batch_size: int = 32) -> Dict[str, float]:
+        """Calibrate static int8 activation scales for the detector.
+
+        ``frames``: (N, *serving_size, 3) RGB [0, 255] representative
+        serving frames; they go through the pooling and normalization the
+        graph applies, so the calibration sees the canvas tensors of
+        serving. Stores the scales and rebuilds the detector runner.
+        """
+        if not self.use_int8_detector:
+            raise ValueError("calibrate_int8_detector requires use_int8_detector=True")
+        if not self._initialized:
+            raise RuntimeError("call init_variables or load_variables before "
+                               "calibrate_int8_detector")
+        x = self._canvas(torch.as_tensor(frames).to(self.device).to(self.dtype))
+        self.det_act_scales = calibrate_det_act_scales(
+            self.detector, [x[i:i + batch_size] for i in range(0, x.shape[0], batch_size)])
+        self.build_int8_runners()
+        return self.det_act_scales
+
+    def _canvas(self, frames: torch.Tensor) -> torch.Tensor:
+        """Normalized detection canvas: pool down to stem_fold× the detection
+        size (the final 2× rides the folded first conv), then (x−127.5)/128."""
+        while frames.shape[1] > self.input_size[0] * self._stem_fold:
+            frames = _avg_pool2(frames)
+        return (frames - 127.5) / 128.0
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -168,14 +262,9 @@ class FusedPipeline:
         # pixels to bf16 regardless.
         frames = frames.to(self.dtype)
 
-        # 0. Detection canvas: pool down to stem_fold× the detection size;
-        #    the final 2× rides the folded first conv.
-        det_frames = frames
-        while det_frames.shape[1] > self.input_size[0] * self._stem_fold:
-            det_frames = _avg_pool2(det_frames)
-
-        # 1. Detection network + decode; the best face is the argmax.
-        outs = self.detector((det_frames - 127.5) / 128.0)
+        # 0–1. Detection canvas, detection network + decode; the best face
+        #    is the argmax.
+        outs = (self._det_int8 if self.use_int8_detector else self.detector)(self._canvas(frames))
         scores = torch.cat([torch.sigmoid(outs[s]["scores"]) for s in STRIDES], dim=1)
         dist = torch.cat([outs[s]["bbox"] for s in STRIDES], dim=1)
         kps = torch.cat([outs[s]["kps"] for s in STRIDES], dim=1)
@@ -199,16 +288,31 @@ class FusedPipeline:
         tform = umeyama(lms, self.reference.expand(lms.shape))
         if self._windowed:
             aligned = warp_affine_windowed(frames, tform, self.output_size,
-                                           window=self.warp_window, fractional=True)
+                                           window=self.warp_window,
+                                           fractional=self.warp_fractional)
         else:
             aligned = warp_affine_legacy(frames, tform, self.output_size)
         aligned_lms = transform_points(tform, lms)
 
-        # 3. Quality scoring on the aligned face.
-        quality, q_valid, _ = overall_quality(aligned, aligned_lms, bbox, conf)
+        # 3. Quality scoring on the aligned face (skippable).
+        if self.compute_quality:
+            quality, q_valid, _ = overall_quality(aligned, aligned_lms, bbox, conf)
+        else:
+            quality = torch.ones_like(conf)
+            q_valid = torch.ones_like(conf, dtype=torch.bool)
 
-        # 4. Classification.
-        logits, features = self.model(normalize_imagenet(aligned / 255.0), aligned_lms)
+        # 4. Classification. With the int8 tail the early blocks run in bf16
+        #    whatever the pipeline dtype, the tail works on NHWC, and the
+        #    head conv, attention and classifier resume unquantized.
+        norm = normalize_imagenet(aligned / 255.0)
+        if self.use_int8_tail:
+            backbone = self.model.feature_extractor.backbone
+            split = backbone(norm, stop_block=self._tail.start, dtype=torch.bfloat16)
+            maps = self._tail(split.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            logits, features = self.model(maps, aligned_lms,
+                                          backbone_start_block=len(backbone.blocks))
+        else:
+            logits, features = self.model(norm, aligned_lms)
         probs = torch.softmax(logits, dim=-1)
         return {
             "has_face": has_face,

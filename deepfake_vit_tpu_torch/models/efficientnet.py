@@ -10,7 +10,7 @@ stochastic depth are identities.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -123,7 +123,10 @@ class EfficientNetBackbone(nn.Module):
     ``forward(x)`` takes (B, H, W, 3) normalized images (NHWC) and returns
     the final (B, C, h, w) feature map (NCHW). ``start_block > 0`` resumes
     mid-network: x is then the NCHW input activation of flat block
-    ``start_block``.
+    ``start_block`` (``len(blocks)``: only the head conv runs).
+    ``stop_block`` stops early and returns the NCHW input activation of
+    flat block ``stop_block``. ``dtype`` overrides the module's activation
+    dtype for this call.
     """
 
     def __init__(self, variant: str = "b4", dtype: torch.dtype = torch.float32):
@@ -144,11 +147,15 @@ class EfficientNetBackbone(nn.Module):
     def feature_dim(self) -> int:
         return feature_dim(self.variant)
 
-    def forward(self, x: torch.Tensor, start_block: int = 0) -> torch.Tensor:
-        x = x.to(self.dtype)
+    def forward(self, x: torch.Tensor, start_block: int = 0, stop_block: Optional[int] = None,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        x = x.to(dtype or self.dtype)
         if start_block == 0:
             x = x.permute(0, 3, 1, 2)
             x = F.silu(self.stem_bn(self.stem_conv(x)))
-        for idx in range(start_block, len(self.blocks)):
+        last = len(self.blocks) if stop_block is None else stop_block
+        for idx in range(start_block, last):
             x = getattr(self, f"block_{idx}")(x)
+        if stop_block is not None:
+            return x
         return F.silu(self.head_bn(self.head_conv(x)))

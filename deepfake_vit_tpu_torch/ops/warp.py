@@ -2,15 +2,17 @@
 
 ``warp_affine`` is the exact gather formulation (cv2 INTER_LINEAR +
 BORDER_CONSTANT=0) in float32, the reference the kernels are judged by.
-``warp_affine_windowed(fractional=True)`` is the serving path: per face, a
-window of ``window``² pixels resampled from the original-resolution frame
-at the factor ``r`` that fits the output quad (``window_geometry_frac``),
-then warped to the output size — both steps through the hand-written
-kernels of ``ops/warp_kernel.py``.
+``warp_affine_windowed`` is the serving path: per face, a window of
+``window``² pixels taken from the original-resolution frame, then warped to
+the output size — both steps through the hand-written kernels of
+``ops/warp_kernel.py``. With ``fractional=True`` the window is resampled at
+the factor ``r`` that fits the output quad (``window_geometry_frac``);
+otherwise it is cut from the 2ˡ× average-pooled frame at the smallest mip
+level ``l`` whose quad fits (``window_geometry``).
 
 The geometry decides which pixels a crop reads, so it is computed in
 float32 with the JAX package's operation order: the 16-aligned strip
-start, ``r`` ceiled to the 2⁻¹⁶ grid, integer ``off_y``/``x0f``.
+start, ``r`` ceiled to the 2⁻¹⁶ grid, integer offsets.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from .umeyama import invert_affine
-from .warp_kernel import crop_frac, warp_affine_legacy
+from .warp_kernel import crop_frac, crop_pool, warp_affine_legacy
 
 
 def _bilinear_sample_one(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
@@ -95,6 +97,69 @@ def _quad_extent(A_inv: torch.Tensor, out_size: Tuple[int, int]):
     cx = (a * jm + b * im) * 0.5 + c
     cy = (d * jm + e * im) * 0.5 + f
     return a, b, c, d, e, f, span_x, span_y, cx, cy
+
+
+def max_window_levels(src_hw: Tuple[int, int], window: int) -> int:
+    """Number of usable mip levels: every level must still contain a full
+    window and keep the row-offset range 8-aligned."""
+    H, W = src_hw
+    levels = 1
+    while (H % (2 ** levels) == 0 and W % (2 ** levels) == 0
+           and (H >> levels) >= window and (W >> levels) >= window):
+        levels += 1
+    return levels
+
+
+def window_geometry(A_inv: torch.Tensor, out_size: Tuple[int, int], src_hw: Tuple[int, int],
+                    window: int, levels: int, y_align: int = 8):
+    """Per-face mip level, crop offsets and window-space affine.
+
+    A_inv: (N, 2, 3) dst→src affines in level-0 source coordinates. Returns
+    (level (N,) int32, y0s (levels, N) int32, x0s (levels, N) int32 — the
+    window's start at each level, in that level's pixels — and A_win
+    (N, 2, 3) dst→window affines for the selected level).
+
+    Level ℓ is the smallest whose 2⁻ˡ-scaled output quad (+1 px bilinear
+    margin each side) fits the window with 2·``y_align`` rows of vertical
+    slack for the aligned start. The quad may exceed the frame: taps outside
+    the clipped window get zero weight, i.e. border 0.
+    """
+    Hs, Ws = src_hw
+    A_inv = A_inv.float()
+    a, b, c, d, e, f, span_x, span_y, cx, cy = _quad_extent(A_inv, out_size)
+
+    # fits[ℓ] is monotone in ℓ, so level = #{ℓ < L−1 : not fits[ℓ]}.
+    level = torch.zeros(a.shape, dtype=torch.int32, device=A_inv.device)
+    for l in range(levels - 1):
+        fit = ((span_x / float(2 ** l) + 2.0) <= float(window - 1)) & (
+            (span_y / float(2 ** l) + 2.0) <= float(window - 2 * y_align))
+        level = level + (~fit).to(torch.int32)
+
+    y0s, x0s = [], []
+    for l in range(levels):
+        scale = 2.0 ** -l
+        off = 0.5 * (1.0 - scale)  # pixel-center shift of 2× average pooling
+        cx_l = cx * scale - off
+        cy_l = cy * scale - off
+        Wl, Hl = Ws >> l, Hs >> l
+        x0s.append(torch.round(cx_l - window / 2).to(torch.int32).clamp(0, Wl - window))
+        y0_raw = torch.floor((cy_l - window / 2) / y_align).to(torch.int32) * y_align
+        y0s.append(y0_raw.clamp(0, (Hl - window) // y_align * y_align))
+    y0s, x0s = torch.stack(y0s), torch.stack(x0s)
+
+    idx = torch.arange(level.shape[0], device=A_inv.device)
+    x0_sel = x0s[level.long(), idx]
+    y0_sel = y0s[level.long(), idx]
+    scale = torch.exp2(-level.float())
+    off = 0.5 * (1.0 - scale)
+    A_win = torch.stack(
+        [
+            torch.stack([a * scale, b * scale, c * scale - off - x0_sel], -1),
+            torch.stack([d * scale, e * scale, f * scale - off - y0_sel], -1),
+        ],
+        dim=1,
+    )
+    return level, y0s, x0s, A_win
 
 
 def frac_window_levels(src_h: int, window: int) -> int:
@@ -182,24 +247,28 @@ def warp_affine_windowed(
     matrices: torch.Tensor,
     out_size: Tuple[int, int],
     window: int = 160,
+    levels: Optional[int] = None,
     inverse: bool = False,
     frame_indices: Optional[torch.Tensor] = None,
     fractional: bool = False,
     tap_construction: str = "legacy",
 ) -> torch.Tensor:
-    """Affine warp through a per-face resampled window (fractional path).
+    """Affine warp through a per-face window of the frame.
 
     Same contract as :func:`warp_affine` with border_value=0: images
     (B, Hs, Ws, C) are cast to bf16, ``frame_indices`` (N,) maps each of
     the N matrices to its frame (default identity). Returns (N, Ho, Wo, C)
     float32. Bitwise equal to the legacy-tap warp of the full frame
-    whenever the quad fits the window at r = 1.
+    whenever the quad fits the window at level 0 (r = 1).
+
+    ``fractional=False`` (the default): the window is cut from the frame
+    average-pooled ``level`` times (``window_geometry``; ``levels`` caps the
+    mip levels, default ``max_window_levels``) by the pooled crop kernel.
+    ``fractional=True``: the window is resampled at the per-face factor
+    ``r`` with bilinear point taps (``window_geometry_frac``) by the
+    fractional crop kernel; its strip buckets follow from the frame height.
+    Only the ``"legacy"`` tap construction is ported.
     """
-    if not fractional:
-        raise NotImplementedError(
-            "the pooled (non-fractional) windowed warp is not ported yet: it "
-            "needs the crop_window_pool kernel, a later port slice"
-        )
     if tap_construction != "legacy":
         raise NotImplementedError(
             f"tap construction {tap_construction!r} is not ported yet (a later "
@@ -207,24 +276,37 @@ def warp_affine_windowed(
         )
     B, Hs, Ws, C = images.shape
     N = matrices.shape[0]
-    if Hs % 16:
-        # The 16-aligned strip start cannot otherwise reach the bottom
-        # Hs % 16 rows: pad zero rows, which sample as border 0 exactly.
-        images = F.pad(images, (0, 0, 0, 0, 0, -Hs % 16))
-        Hs += -Hs % 16
+    if fractional:
+        if levels is not None:
+            raise ValueError("fractional=True derives its strip buckets from the frame "
+                             "height (frac_window_levels); levels= is not supported")
+        if Hs % 16:
+            # The 16-aligned strip start cannot otherwise reach the bottom
+            # Hs % 16 rows: pad zero rows, which sample as border 0 exactly.
+            images = F.pad(images, (0, 0, 0, 0, 0, -Hs % 16))
+            Hs += -Hs % 16
+    elif levels is None:
+        levels = max_window_levels((Hs, Ws), window)
     if min(Hs, Ws) < window:
         raise ValueError(f"window {window} exceeds source {Hs}×{Ws}")
-    if window % 8:
-        raise ValueError("window must be a multiple of 8")
+    if Hs % 8 or window % 8:
+        raise ValueError("source height and window must be multiples of 8")
 
     A_inv = matrices if inverse else invert_affine(matrices)
-    levels = frac_window_levels(Hs, window)
-    level, strip0s, r, off_y, x0f, A_win = window_geometry_frac(
-        A_inv, out_size, (Hs, Ws), window, levels, y_align=16
-    )
-    strip0 = strip0s[level.long(), torch.arange(N, device=level.device)]
-    crop = crop_frac(
-        images.to(torch.bfloat16).reshape(B, Hs, Ws * C), strip0, level, r,
-        off_y, x0f, window, C, frame_idx=frame_indices,
-    ).reshape(N, window, window, C)
-    return warp_affine_legacy(crop, A_win, out_size, inverse=True)
+    frames_flat = images.to(torch.bfloat16).reshape(B, Hs, Ws * C)
+    idx = torch.arange(N, device=A_inv.device)
+    if fractional:
+        level, strip0s, r, off_y, x0f, A_win = window_geometry_frac(
+            A_inv, out_size, (Hs, Ws), window, frac_window_levels(Hs, window), y_align=16
+        )
+        crop = crop_frac(frames_flat, strip0s[level.long(), idx], level, r, off_y, x0f,
+                         window, C, frame_idx=frame_indices)
+    else:
+        # bf16 frames as in the fractional path, hence 16-row aligned starts.
+        level, y0s, x0s, A_win = window_geometry(
+            A_inv, out_size, (Hs, Ws), window, levels, y_align=16
+        )
+        y0_l0 = y0s[level.long(), idx] << level
+        crop = crop_pool(frames_flat, y0_l0, x0s[level.long(), idx], level, window, C,
+                         frame_idx=frame_indices)
+    return warp_affine_legacy(crop.reshape(N, window, window, C), A_win, out_size, inverse=True)

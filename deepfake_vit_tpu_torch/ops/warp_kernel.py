@@ -1,6 +1,6 @@
-"""The two kernels of the serving warp: fractional window crop and the
-legacy-tap affine warp, hand-written in CUDA C++ for Hopper
-(``csrc/warp.cu``).
+"""The three kernels of the serving warps: fractional window crop, pooled
+window crop and the legacy-tap affine warp, hand-written in CUDA C++ for
+Hopper (``csrc/warp.cu``).
 
 Each wrapper here checks its inputs, allocates the output with
 ``torch.empty`` and launches its kernel on the current stream when the
@@ -10,91 +10,20 @@ points (tap weights rounded to bf16, the vertical pass rounded to the
 pixel dtype, f32 sums of exact bf16×bf16 products). ``launches`` on each
 wrapper counts kernel launches and nothing else.
 
-The library is built on first use with ``nvcc`` into
-``build/deepfake_vit_tpu_torch/`` at the repository root (a plain C
-interface loaded with ``ctypes``), and rebuilt only when the source's hash
-changes.
+The library is built on first use (``ops/cuda_build.py``).
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 
+from .cuda_build import BUILD_DIR, NVCC_FLAGS, build_library, check, library, stream
 from .umeyama import invert_affine
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "warp.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "deepfake_vit_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
-
-_lib: Optional[ctypes.CDLL] = None
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    cand = Path(cuda_home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
-def build_library(verbose: bool = False) -> Path:
-    """Compile ``csrc/warp.cu`` unless a library for its current hash exists.
-
-    Returns the path of the shared library. ``verbose`` adds ``-Xptxas -v``
-    and prints the compiler's report (registers, shared memory, spills).
-    """
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libdfv_warp_{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", tmp, str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
-    return out
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dfv_crop_frac_bf16.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, p]
-        lib.dfv_crop_frac_bf16.restype = i
-        lib.dfv_warp_affine_legacy_bf16.argtypes = [p, p, p, i, i, i, i, i, i, p]
-        lib.dfv_warp_affine_legacy_bf16.restype = i
-        _lib = lib
-    return _lib
-
-
-def _check(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build_library", "crop_frac", "crop_frac_plain",
+           "crop_pool", "crop_pool_plain", "warp_affine_legacy", "warp_affine_legacy_plain"]
 
 
 def _tri_bf16(s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -196,18 +125,99 @@ def crop_frac(frames_flat: torch.Tensor, strip0: torch.Tensor, level: torch.Tens
         raise RuntimeError(f"crop_frac has no kernel for device {dev}")
     frames_flat = frames_flat.contiguous()
     out = torch.empty((N, window, window * channels), dtype=torch.bfloat16, device=dev)
-    lib = _library()
+    lib = library()
     err = lib.dfv_crop_frac_bf16(
         frames_flat.data_ptr(), out.data_ptr(),
         *(s.data_ptr() for s in scalars),
-        N, H, frames_flat.shape[2] // channels, channels, window, _stream(),
+        N, H, frames_flat.shape[2] // channels, channels, window, stream(),
     )
-    _check(err, "crop_frac")
+    check(err, "crop_frac")
     crop_frac.launches += 1
     return out
 
 
 crop_frac.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Pooled window crop
+# ---------------------------------------------------------------------------
+
+
+def crop_pool_plain(frames_flat, y0_l0, x0, level, window: int, channels: int,
+                    frame_idx) -> torch.Tensor:
+    """Plain PyTorch version of the pooled crop kernel: per level present,
+    gather each face's (window·2ˡ)² block and average its 2ˡ×2ˡ cells, rows
+    first with one rounding to the pixel dtype in between.
+
+    Arguments are the kernel's own (int32 per-face scalars); see
+    :func:`crop_pool`.
+    """
+    B, H, WC = frames_flat.shape
+    C = channels
+    W = WC // C
+    dev = frames_flat.device
+    frames = frames_flat.reshape(B, H, W, C)
+    out = torch.zeros((y0_l0.shape[0], window, window, C), dtype=frames_flat.dtype, device=dev)
+    for l in sorted(set(level.tolist())):
+        sel = torch.nonzero(level == l)[:, 0]
+        side, wl = 1 << l, window << l
+        span = torch.arange(wl, device=dev)
+        rows = y0_l0[sel].long()[:, None] + span  # (n, wl) level-0 rows
+        cols = (x0[sel].long()[:, None] << l) + span
+        valid = ((rows >= 0) & (rows < H))[:, :, None] & ((cols >= 0) & (cols < W))[:, None, :]
+        block = frames[frame_idx[sel].long()[:, None, None],
+                       rows.clamp(0, H - 1)[:, :, None], cols.clamp(0, W - 1)[:, None, :]]
+        block = block.float() * valid[..., None] * (1.0 / side)  # (n, wl, wl, C)
+        t1 = block.reshape(-1, window, side, wl, C).sum(2).to(frames_flat.dtype).float()
+        pooled = (t1 * (1.0 / side)).reshape(-1, window, window, side, C).sum(3)
+        out[sel] = pooled.to(frames_flat.dtype)
+    return out.reshape(-1, window, window * C)
+
+
+def crop_pool(frames_flat: torch.Tensor, y0_l0: torch.Tensor, x0: torch.Tensor,
+              level: torch.Tensor, window: int, channels: int,
+              frame_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pooled window crops straight from level-0 frames.
+
+    frames_flat: (B, H, W·C) bf16 row-flattened frames; per face (N,):
+    ``y0_l0`` level-0 row offset (selected-level y0 << level), ``x0``
+    selected-level column offset, ``level`` mip level, ``frame_idx`` source
+    frame (default: identity). Returns (N, window, window·C) bf16: the
+    window of the frame average-pooled ``level`` times by 2 — exact
+    4ˡ-block averaging in f32, rows first, rounded to bf16 once in between
+    and once at the end. Pixels outside the frame read as 0.
+    """
+    if frames_flat.dim() != 3 or frames_flat.shape[2] % channels:
+        raise ValueError(f"frames_flat must be (B, H, W*{channels}), got {tuple(frames_flat.shape)}")
+    if frames_flat.dtype != torch.bfloat16:
+        raise TypeError(f"crop_pool takes bf16 frames, got {frames_flat.dtype}")
+    if window <= 0:
+        raise ValueError("window must be positive")
+    N, H = y0_l0.shape[0], frames_flat.shape[1]
+    dev = frames_flat.device
+    if frame_idx is None:
+        frame_idx = torch.arange(N, device=dev)
+    scalars = [t.to(torch.int32).contiguous() for t in (y0_l0, x0, level, frame_idx)]
+    if any(s.device != dev or s.shape != (N,) for s in scalars):
+        raise ValueError("per-face scalars must be (N,) tensors on the frames' device")
+    if dev.type == "cpu":
+        return crop_pool_plain(frames_flat, *scalars[:3], window=window, channels=channels,
+                               frame_idx=scalars[3])
+    if dev.type != "cuda":
+        raise RuntimeError(f"crop_pool has no kernel for device {dev}")
+    frames_flat = frames_flat.contiguous()
+    out = torch.empty((N, window, window * channels), dtype=torch.bfloat16, device=dev)
+    err = library().dfv_crop_pool_bf16(
+        frames_flat.data_ptr(), out.data_ptr(), *(s.data_ptr() for s in scalars),
+        N, H, frames_flat.shape[2] // channels, channels, window, stream(),
+    )
+    check(err, "crop_pool")
+    crop_pool.launches += 1
+    return out
+
+
+crop_pool.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -276,12 +286,12 @@ def warp_affine_legacy(images: torch.Tensor, matrices: torch.Tensor,
     if dev.type != "cuda":
         raise RuntimeError(f"warp_affine_legacy has no kernel for device {dev}")
     out = torch.empty((B, Ho, Wo, C), dtype=torch.float32, device=dev)
-    lib = _library()
+    lib = library()
     err = lib.dfv_warp_affine_legacy_bf16(
         images.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
-        B, Hs, Ws, C, Ho, Wo, _stream(),
+        B, Hs, Ws, C, Ho, Wo, stream(),
     )
-    _check(err, "warp_affine_legacy")
+    check(err, "warp_affine_legacy")
     warp_affine_legacy.launches += 1
     return out
 

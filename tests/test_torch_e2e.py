@@ -107,12 +107,15 @@ def test_entry_point_device_and_unported_options(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FusedPipeline(cfg, **COMMON)  # no card and no explicit CPU: never a silent fallback
-    for option in (dict(use_int8_tail=True), dict(use_int8_detector=True), dict(keep_top_k=3),
-                   dict(warp_tap_mode="uw16"), dict(detector_arch="lite"),
-                   dict(use_s2d_early=True), dict(use_fused_backbone=True),
-                   dict(warp_fractional=False)):
+    for option in (dict(keep_top_k=3), dict(warp_tap_mode="uw16"), dict(detector_arch="lite"),
+                   dict(use_s2d_early=True), dict(use_fused_backbone=True)):
         with pytest.raises(NotImplementedError, match="slice"):
             FusedPipeline(cfg, device="cpu", **{**COMMON, **option})
+    with pytest.raises(ValueError, match="scrfd family"):
+        FusedPipeline(cfg, device="cpu", use_int8_detector=True, detector_arch="lite", **COMMON)
+    for option in (dict(use_int8_tail=True), dict(use_int8_detector=True),
+                   dict(warp_fractional=False)):  # ported: these construct
+        FusedPipeline(cfg, device="cpu", **{**COMMON, **option})
     pipe = FusedPipeline(cfg, device="cpu", **COMMON)
     with pytest.raises(RuntimeError, match="init_variables"):
         pipe.forward(np.zeros((1, 256, 256, 3), np.uint8))

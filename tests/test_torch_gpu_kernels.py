@@ -9,8 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+from deepfake_vit_tpu_torch.ops import int8_kernel as ik
 from deepfake_vit_tpu_torch.ops import warp_kernel as wk
-from deepfake_vit_tpu_torch.ops.warp import frac_window_levels, window_geometry_frac
+from deepfake_vit_tpu_torch.ops.warp import (frac_window_levels, max_window_levels,
+                                             window_geometry, window_geometry_frac)
 
 pytestmark = pytest.mark.gpu
 
@@ -23,7 +25,7 @@ def dev():
     return torch.device("cuda")
 
 
-def _faces(n, H, W, window, out, dev, seed=0):
+def _affines(n, H, W, out, dev, seed=0):
     rng = np.random.default_rng(seed)
     s = np.exp(rng.uniform(np.log(0.3), np.log(3.6), n))
     s[: n // 4] = 0.4
@@ -32,7 +34,11 @@ def _faces(n, H, W, window, out, dev, seed=0):
         [np.stack([np.cos(th), -np.sin(th)], -1), np.stack([np.sin(th), np.cos(th)], -1)], 1)
     center = rng.uniform(-40, max(H, W) + 40, (n, 2))
     t = center - np.einsum("nij,j->ni", R, np.asarray([(out[1] - 1) / 2, (out[0] - 1) / 2]))
-    A = torch.as_tensor(np.concatenate([R, t[..., None]], -1), dtype=torch.float32, device=dev)
+    return torch.as_tensor(np.concatenate([R, t[..., None]], -1), dtype=torch.float32, device=dev)
+
+
+def _faces(n, H, W, window, out, dev, seed=0):
+    A = _affines(n, H, W, out, dev, seed)
     return window_geometry_frac(A, out, (H, W), window, frac_window_levels(H, window), y_align=16)
 
 
@@ -51,6 +57,81 @@ def test_crop_frac_kernel_matches_plain(dev, shared_frames):
     want = wk.crop_frac_plain(frames, strip0.int(), level.int(), torch.round(r * 65536).int(),
                               off_y.int(), x0f.int(), window, C, fidx.int())
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pixels", ["integer", "general"])
+def test_crop_pool_kernel_matches_plain(dev, pixels):
+    """Integer-valued pixels: the f32 sums are exact in any order, so bit
+    for bit. General bf16 pixels: the order of the 2ˡ-term sums may move a
+    result by one bf16 step."""
+    H, W, C, window, out, N, B = 640, 640, 3, 160, (224, 224), 96, 8
+    A = _affines(N, H, W, out, dev, seed=2)
+    levels = max_window_levels((H, W), window)
+    level, y0s, x0s, _ = window_geometry(A, out, (H, W), window, levels, y_align=16)
+    assert levels == 3 and set(level.tolist()) == {0, 1, 2}
+    idx = torch.arange(N, device=dev)
+    y0_l0 = y0s[level.long(), idx] << level
+    x0 = x0s[level.long(), idx]
+    if pixels == "integer":
+        frames = torch.randint(0, 256, (B, H, W * C), device=dev).to(torch.bfloat16)
+    else:
+        frames = (torch.rand((B, H, W * C), device=dev) * 255).to(torch.bfloat16)
+    fidx = idx % B
+    before = wk.crop_pool.launches
+    got = wk.crop_pool(frames, y0_l0, x0, level, window, C, frame_idx=fidx)
+    torch.cuda.synchronize()
+    assert wk.crop_pool.launches == before + 1
+    want = wk.crop_pool_plain(frames, y0_l0.int(), x0.int(), level.int(), window, C, fidx.int())
+    if pixels == "integer":
+        assert torch.equal(got, want)
+    else:
+        assert (got.float() - want.float()).abs().max() <= 1.0  # one bf16 step below 256
+    # Level 0 is a pure crop of the frame.
+    k = int(torch.nonzero(level == 0)[0, 0])
+    y, x = int(y0_l0[k]), int(x0[k])
+    src = frames[int(fidx[k])].reshape(H, W, C)[y:y + window, x:x + window]
+    assert torch.equal(got[k].reshape(window, window, C), src)
+
+
+@pytest.mark.parametrize("M,K,N,scales,bias", [
+    (128 * 576, 56, 336, 1, True),       # largest M of the tail, K not a multiple of 32
+    (128 * 36, 2688, 448, 128, True),    # largest K, per-image dynamic scales
+    (1000, 960, 160, 1, False),          # ragged M tile, no bias
+    (70, 112, 52, 70, True),             # ragged N tile, one scale per row
+])
+def test_int8_gemm_kernel_matches_plain(dev, M, K, N, scales, bias):
+    g = torch.Generator(device="cpu").manual_seed(M + K)
+    xq = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8).to(dev)
+    wq = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8).to(dev)
+    sx = (torch.rand(scales, generator=g) * 0.05 + 0.01).to(dev)
+    sw = (torch.rand(N, generator=g) * 0.01 + 0.001).to(dev)
+    b = torch.randn(N, generator=g).to(dev) if bias else None
+    before = ik.int8_gemm.launches
+    got = ik.int8_gemm(xq, wq, sx, sw, b)
+    torch.cuda.synchronize()
+    assert ik.int8_gemm.launches == before + 1
+    assert torch.equal(got, ik.int8_gemm_plain(xq, wq, sx, sw, b))
+
+
+@pytest.mark.parametrize("shape,cout,k,stride,scales", [
+    ((32, 160, 160, 32), 32, 3, 2, 1),    # stem conv 2
+    ((32, 40, 40, 64), 64, 3, 1, 32),     # FPN / tower, per-image scales
+    ((32, 10, 10, 256), 256, 3, 1, 1),    # widest block
+    ((32, 80, 80, 32), 64, 1, 2, 1),      # 1×1 stride-2 shortcut
+    ((3, 21, 13, 32), 36, 3, 2, 3),       # odd sizes, ragged tiles
+])
+def test_int8_conv_kernel_matches_plain(dev, shape, cout, k, stride, scales):
+    g = torch.Generator(device="cpu").manual_seed(shape[1] + cout)
+    xq = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).to(dev)
+    kq = torch.randint(-127, 128, (k, k, shape[3], cout), generator=g, dtype=torch.int8).to(dev)
+    sx = (torch.rand(scales, generator=g) * 0.05 + 0.01).to(dev)
+    sw = (torch.rand(cout, generator=g) * 0.01 + 0.001).to(dev)
+    b = torch.randn(cout, generator=g).to(dev)
+    before = ik.int8_conv.launches
+    got = ik.int8_conv(xq, kq, sx, sw, b, stride)
+    torch.cuda.synchronize()
+    assert ik.int8_conv.launches == before + 1
+    assert torch.equal(got, ik.int8_conv_plain(xq, kq, sx, sw, b, stride))
 
 
 def test_warp_kernel_matches_plain(dev):
@@ -79,3 +160,14 @@ def test_kernels_reject_wrong_inputs(dev):
     with pytest.raises(ValueError):
         wk.crop_frac(torch.zeros((1, 128, 384), device=dev, dtype=torch.bfloat16), z, z,
                      torch.ones(1), z, z, 128, 3)  # r on the CPU
+    with pytest.raises(TypeError):
+        wk.crop_pool(torch.zeros((1, 128, 384), device=dev), z, z, z, 128, 3)
+    q = torch.zeros((8, 8), dtype=torch.int8, device=dev)
+    one = torch.ones(1, device=dev)
+    with pytest.raises(TypeError):
+        ik.int8_gemm(q.float(), q, one, torch.ones(8, device=dev))
+    with pytest.raises(ValueError):
+        ik.int8_gemm(q, q, one, torch.ones(8))  # sw on the CPU
+    with pytest.raises(ValueError):
+        ik.int8_conv(q.reshape(1, 2, 4, 8), q.reshape(1, 1, 8, 8), torch.ones(3, device=dev),
+                     torch.ones(8, device=dev))  # 3 scales for 1 image

@@ -158,6 +158,6 @@ def test_wrappers_validate_and_count_only_launches():
     tk.warp_affine_legacy(torch.zeros((1, 8, 8, 3)), torch.eye(2, 3)[None], (4, 4))
     # The CPU runs the plain versions: no kernel launched, nothing counted.
     assert (tk.crop_frac.launches, tk.warp_affine_legacy.launches) == before
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="tap construction"):
         twarp.warp_affine_windowed(torch.zeros((1, 64, 64, 3)), torch.eye(2, 3)[None], (8, 8),
-                                   window=32, fractional=False)
+                                   window=32, fractional=True, tap_construction="uw16")
