@@ -12,9 +12,12 @@ the fractional one, both with legacy taps; bf16 or float32; the SCRFD
 detector family, in its own dtype or as the int8 graph
 (``use_int8_detector``); the int8 late-stage classifier tail
 (``use_int8_tail``) with ``calibrate_int8``/``calibrate_int8_detector``;
-``compute_quality=False``. Every other option of the JAX pipeline
-(``keep_top_k > 1``, other tap modes, the lite detector, ``use_s2d_early``,
-``use_fused_backbone``) raises ``NotImplementedError``.
+the fused early backbone stages (``use_fused_backbone``: stem and MBConv
+blocks through the fused kernels, which wins over the int8 tail when both
+are set, as in the JAX graph); ``compute_quality=False``. Every other
+option of the JAX pipeline (``keep_top_k > 1``, the ``uw``/``uw16``/``int8``
+tap modes, the lite detector, ``use_s2d_early``) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from .device import resolve_device
 from .models.bridge import load_flax_variables
 from .models.feature_extractor import create_model_from_config
+from .models.fused_backbone import FusedBackboneRunner
 from .models.int8_tail import Int8TailRunner, calibrate_act_scales, default_tail_start
 from .models.layers import init_weights
 from .models.scrfd_int8 import ScrfdInt8Runner, calibrate_det_act_scales
@@ -40,12 +44,12 @@ from .preprocessing.aligner import DEFAULT_REFERENCE_LANDMARKS, _LANDMARK_ORDER
 from .preprocessing.detector import build_detection_net, default_weights_path
 from .utils.msgpack import msgpack_restore
 
-_NEXT_SLICE = "the multi-face slice (NMS and shared-frame crops), the next slice of the port"
-_LATER_SLICE = "a later slice of the port"
+_NEXT_SLICE = ("the next slice of the port (multi-face serving, the uw/uw16/int8 tap modes, "
+               "the lite detector and use_s2d_early)")
 
 
-def _not_ported(option: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(f"{option} is not ported yet: it belongs to {slice_name}")
+def _not_ported(option: str) -> NotImplementedError:
+    return NotImplementedError(f"{option} is not ported yet: it belongs to {_NEXT_SLICE}")
 
 
 class FusedPipeline:
@@ -62,11 +66,15 @@ class FusedPipeline:
     ``use_int8_detector`` the detector's wide convs through the s8 conv
     kernel; ``int8_act_scales``/``det_act_scales`` are calibrated static
     activation scales (None → dynamic per-image scales), set here or by
-    ``calibrate_int8``/``calibrate_int8_detector``. The int8 runners are
-    built from the networks' weights by ``init_variables`` and
-    ``load_variables``; call ``build_int8_runners`` after changing the
-    weights any other way. ``compute_quality=False`` skips quality scoring
-    (quality 1, valid).
+    ``calibrate_int8``/``calibrate_int8_detector``. ``use_fused_backbone``
+    runs the stem and the early blocks (down to 14² maps) through the fused
+    kernels in bf16 and resumes the stock backbone after them; unlike the
+    JAX pipeline, which drops the option silently off the TPU, it holds on
+    every device: on a CUDA device the kernels run or the call raises, on
+    ``device="cpu"`` their plain versions run. The runners are built from
+    the networks' weights by ``init_variables`` and ``load_variables``; call
+    ``build_runners`` after changing the weights any other way.
+    ``compute_quality=False`` skips quality scoring (quality 1, valid).
     """
 
     def __init__(
@@ -96,15 +104,13 @@ class FusedPipeline:
         if use_int8_detector and detector_arch != "scrfd":
             raise ValueError("use_int8_detector supports the scrfd family only")
         if keep_top_k != 1:
-            raise _not_ported("keep_top_k > 1 (multi-face serving with NMS)", _NEXT_SLICE)
+            raise _not_ported("keep_top_k > 1 (multi-face serving with NMS)")
         if warp_tap_mode != "legacy":
-            raise _not_ported(f"warp_tap_mode={warp_tap_mode!r}", _LATER_SLICE)
+            raise _not_ported(f"warp_tap_mode={warp_tap_mode!r}")
         if detector_arch != "scrfd":
-            raise _not_ported(f"detector_arch={detector_arch!r}", _LATER_SLICE)
+            raise _not_ported(f"detector_arch={detector_arch!r}")
         if use_s2d_early:
-            raise _not_ported("use_s2d_early", _LATER_SLICE)
-        if use_fused_backbone:
-            raise _not_ported("use_fused_backbone (fused MBConv kernels)", _LATER_SLICE)
+            raise _not_ported("use_s2d_early")
 
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -115,6 +121,7 @@ class FusedPipeline:
         self.warp_fractional = warp_fractional
         self.confidence_threshold = confidence_threshold
         self.compute_quality = compute_quality
+        self.use_fused_backbone = use_fused_backbone
         self.use_int8_tail = use_int8_tail
         self.int8_tail_start = int8_tail_start
         self.int8_act_scales = int8_act_scales
@@ -122,6 +129,7 @@ class FusedPipeline:
         self.det_act_scales = det_act_scales
         self._tail: Optional[Int8TailRunner] = None
         self._det_int8: Optional[ScrfdInt8Runner] = None
+        self._fused: Optional[FusedBackboneRunner] = None
         self._windowed = min(self.serving_size) > warp_window
         ratio = self.serving_size[0] // self.input_size[0]
         if (
@@ -160,7 +168,7 @@ class FusedPipeline:
         init_weights(self.detector, seed)
         init_weights(self.model, seed + 1)
         self._initialized = True
-        self.build_int8_runners()
+        self.build_runners()
         return self.detector, self.model
 
     def load_variables(self, seed: int = 0, classifier_checkpoint: Optional[str] = None,
@@ -180,7 +188,7 @@ class FusedPipeline:
                                              "batch_stats": ckpt["batch_stats"]})
         if detector_weights:
             load_flax_variables(self.detector, msgpack_restore(detector_weights))
-        self.build_int8_runners()
+        self.build_runners()
         return self.detector, self.model
 
     # ------------------------------------------------------------------
@@ -190,11 +198,14 @@ class FusedPipeline:
             return self.int8_tail_start
         return default_tail_start(self.model.variant)
 
-    def build_int8_runners(self) -> None:
-        """(Re)build the int8 runners from the networks' current weights and
-        the stored activation scales: BatchNorm folding and weight
-        quantization happen here, once, not in ``forward``."""
-        if self.use_int8_tail:
+    def build_runners(self) -> None:
+        """(Re)build the fused-backbone and int8 runners from the networks'
+        current weights and the stored activation scales: BatchNorm folding
+        and weight quantization happen here, once, not in ``forward``."""
+        if self.use_fused_backbone:
+            self._fused = FusedBackboneRunner(self.model.feature_extractor.backbone,
+                                              image_size=self.output_size[0])
+        if self.use_int8_tail and not self.use_fused_backbone:  # the fused backbone wins
             self._tail = Int8TailRunner(self.model.feature_extractor.backbone,
                                         start_block=self._tail_start,
                                         act_scales=self.int8_act_scales)
@@ -219,7 +230,7 @@ class FusedPipeline:
             [norm[i:i + batch_size].to(self.dtype) for i in range(0, norm.shape[0], batch_size)],
             start_block=self._tail_start,
         )
-        self.build_int8_runners()
+        self.build_runners()
         return self.int8_act_scales
 
     def calibrate_int8_detector(self, frames, batch_size: int = 32) -> Dict[str, float]:
@@ -238,7 +249,7 @@ class FusedPipeline:
         x = self._canvas(torch.as_tensor(frames).to(self.device).to(self.dtype))
         self.det_act_scales = calibrate_det_act_scales(
             self.detector, [x[i:i + batch_size] for i in range(0, x.shape[0], batch_size)])
-        self.build_int8_runners()
+        self.build_runners()
         return self.det_act_scales
 
     def _canvas(self, frames: torch.Tensor) -> torch.Tensor:
@@ -301,11 +312,16 @@ class FusedPipeline:
             quality = torch.ones_like(conf)
             q_valid = torch.ones_like(conf, dtype=torch.bool)
 
-        # 4. Classification. With the int8 tail the early blocks run in bf16
-        #    whatever the pipeline dtype, the tail works on NHWC, and the
-        #    head conv, attention and classifier resume unquantized.
+        # 4. Classification. The fused early stages and the int8 tail both
+        #    work on NHWC in bf16 whatever the pipeline dtype; the stock
+        #    backbone resumes after the one and the head conv, attention and
+        #    classifier after the other.
         norm = normalize_imagenet(aligned / 255.0)
-        if self.use_int8_tail:
+        if self.use_fused_backbone:
+            x_tail = self._fused(norm).permute(0, 3, 1, 2)
+            logits, features = self.model(x_tail, aligned_lms,
+                                          backbone_start_block=self._fused.tail_start)
+        elif self.use_int8_tail:
             backbone = self.model.feature_extractor.backbone
             split = backbone(norm, stop_block=self._tail.start, dtype=torch.bfloat16)
             maps = self._tail(split.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)

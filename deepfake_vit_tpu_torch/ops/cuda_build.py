@@ -35,6 +35,9 @@ _SIGNATURES = {
     "dfv_int8_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "dfv_int8_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _I, _P],
+    "dfv_fused_stem": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "dfv_fused_block": [*[_P] * 14, *[_I] * 11, _P],
+    "dfv_fused_mbconv": [*[_P] * 14, *[_I] * 9, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

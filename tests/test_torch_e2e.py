@@ -93,6 +93,46 @@ def test_pipeline_matches_jax(frames, monkeypatch, classifier):
     np.testing.assert_allclose(out["probs"].sum(-1), 1.0, rtol=1e-5)
 
 
+def test_fused_backbone_pipeline_matches_jax(frames, monkeypatch):
+    """``use_fused_backbone=True`` on the CPU: the port runs the fused stages'
+    plain versions (stem and blocks 0-2 in bf16, BatchNorm folded), the JAX
+    pipeline falls back to its unfused backbone off the TPU — the reference
+    the fused path is itself held to. ``fake_prob`` within 0.03: the bf16
+    early stages on top of the warp's differences."""
+    with open(default_weights_path("scrfd"), "rb") as f:
+        det_vars = flax.serialization.msgpack_restore(f.read())
+    with open(CLASSIFIER, "rb") as f:
+        ck = flax.serialization.msgpack_restore(f.read())
+    model_vars = {"params": ck["params"], "batch_stats": ck["batch_stats"]}
+    cfg = _cfg([512, 128, 32])
+
+    jpipe = je2e.FusedPipeline(cfg, dtype=jnp.float32, use_fused_backbone=True, **COMMON)
+    assert not jpipe.use_fused_backbone  # switched off: not a TPU
+    monkeypatch.setattr(je2e, "warp_affine_windowed", partial(warp_affine_windowed, use_pallas=True))
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.device_get(jax.jit(jpipe._graph)(det_vars, model_vars, jnp.asarray(frames)))
+
+    pipe = FusedPipeline(cfg, dtype=torch.float32, device="cpu", use_fused_backbone=True, **COMMON)
+    pipe.load_variables(seed=0, classifier_checkpoint=CLASSIFIER)
+    assert pipe.use_fused_backbone and pipe._fused.tail_start == 3
+    out = {k: v.numpy() for k, v in pipe.forward(frames).items()}
+    plain = FusedPipeline(cfg, dtype=torch.float32, device="cpu", **COMMON)
+    plain.load_variables(seed=0, classifier_checkpoint=CLASSIFIER)
+    unfused = {k: v.numpy() for k, v in plain.forward(frames).items()}
+
+    np.testing.assert_array_equal(out["has_face"], ref["has_face"])
+    np.testing.assert_allclose(out["bbox"], ref["bbox"], atol=1e-2)
+    np.testing.assert_allclose(out["landmarks"], ref["landmarks"], atol=1e-2)
+    np.testing.assert_allclose(out["quality"], ref["quality"], atol=1e-2)
+    np.testing.assert_allclose(out["fake_prob"], ref["fake_prob"], atol=0.03)
+    # The fused stages really ran: the features differ from the unfused
+    # port's, by bf16 roundings only.
+    assert not np.array_equal(out["features"], unfused["features"])
+    np.testing.assert_allclose(out["fake_prob"], unfused["fake_prob"], atol=0.03)
+    scale = np.abs(unfused["features"]).max()
+    np.testing.assert_allclose(out["features"], unfused["features"], atol=0.05 * scale)
+
+
 def test_predict_clip_and_checkpoint_loading(frames):
     pipe = FusedPipeline(_cfg([512, 128, 32]), dtype=torch.float32, device="cpu", **COMMON)
     pipe.load_variables(seed=0, classifier_checkpoint=CLASSIFIER)
@@ -108,14 +148,18 @@ def test_entry_point_device_and_unported_options(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FusedPipeline(cfg, **COMMON)  # no card and no explicit CPU: never a silent fallback
     for option in (dict(keep_top_k=3), dict(warp_tap_mode="uw16"), dict(detector_arch="lite"),
-                   dict(use_s2d_early=True), dict(use_fused_backbone=True)):
+                   dict(use_s2d_early=True)):
         with pytest.raises(NotImplementedError, match="slice"):
             FusedPipeline(cfg, device="cpu", **{**COMMON, **option})
     with pytest.raises(ValueError, match="scrfd family"):
         FusedPipeline(cfg, device="cpu", use_int8_detector=True, detector_arch="lite", **COMMON)
     for option in (dict(use_int8_tail=True), dict(use_int8_detector=True),
-                   dict(warp_fractional=False)):  # ported: these construct
+                   dict(warp_fractional=False), dict(use_fused_backbone=True)):  # ported: these construct
         FusedPipeline(cfg, device="cpu", **{**COMMON, **option})
+    fused = FusedPipeline(cfg, device="cpu", use_fused_backbone=True, **COMMON)
+    assert fused.use_fused_backbone  # never switched off silently, whatever the device
+    fused.init_variables(0)
+    assert fused._fused is not None and fused._fused.tail_start == 3  # b0 at 64²: 32² and 16² maps
     pipe = FusedPipeline(cfg, device="cpu", **COMMON)
     with pytest.raises(RuntimeError, match="init_variables"):
         pipe.forward(np.zeros((1, 256, 256, 3), np.uint8))

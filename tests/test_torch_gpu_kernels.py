@@ -1,14 +1,21 @@
 """The port's CUDA kernels vs their plain PyTorch versions, on the card.
 
 Run on a machine with an NVIDIA GPU: ``pytest -m gpu tests/test_torch_gpu_kernels.py``.
-Without one every test skips. Kernel and plain version apply the same
-rounding points, so they must agree bit for bit.
+Without one every test skips. The warp and int8 kernels apply their plain
+versions' rounding points and exact sums, so they must agree bit for bit.
+The fused stem / MBConv kernels sum in another order than their plain
+versions and take ``expf`` where those take ``torch.sigmoid``: they agree
+within two bf16 steps of the value, ``|k − p| ≤ 2⁻⁷ · max(|p|, 1)``.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from deepfake_vit_tpu_torch.models.efficientnet import EfficientNetBackbone, MBConvBlock, block_args
+from deepfake_vit_tpu_torch.models.layers import BatchNorm, init_weights
+from deepfake_vit_tpu_torch.ops import fused_mbconv as fm
+from deepfake_vit_tpu_torch.ops import fused_stages as fs
 from deepfake_vit_tpu_torch.ops import int8_kernel as ik
 from deepfake_vit_tpu_torch.ops import warp_kernel as wk
 from deepfake_vit_tpu_torch.ops.warp import (frac_window_levels, max_window_levels,
@@ -152,6 +159,92 @@ def test_warp_kernel_matches_plain(dev):
     assert (got == 0).any() and torch.isfinite(got).all()
 
 
+def _randomize_bn(module, seed):
+    """BatchNorm parameters and statistics away from the identity."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            n = m.weight.shape[0]
+            with torch.no_grad():
+                m.weight.copy_(1.0 + 0.1 * torch.randn(n, generator=g))
+                m.bias.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_mean.copy_(0.2 * torch.randn(n, generator=g))
+                m.running_var.copy_(0.5 + (0.2 * torch.randn(n, generator=g)).abs())
+    return module
+
+
+def _assert_two_bf16_steps(got, want):
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    excess = (got - want).abs() - 2.0 ** -7 * want.abs().clamp_min(1.0)
+    assert excess.max() <= 0, (f"{int((excess > 0).sum())} of {want.numel()} beyond two bf16 "
+                               f"steps, worst {float((got - want).abs().max())}")
+
+
+B4 = block_args("b4")
+
+
+@pytest.mark.parametrize("args,h,B", [
+    (dict(kernel=3, stride=1, expand_ratio=6, in_filters=16, out_filters=16, se_ratio=0.25), 13, 3),
+    (dict(kernel=3, stride=2, expand_ratio=6, in_filters=16, out_filters=24, se_ratio=0.25), 32, 3),
+    (dict(kernel=5, stride=1, expand_ratio=6, in_filters=24, out_filters=24, se_ratio=0.25), 16, 3),
+    (dict(kernel=5, stride=2, expand_ratio=6, in_filters=24, out_filters=40, se_ratio=0.25), 22, 3),
+    (dict(kernel=3, stride=1, expand_ratio=1, in_filters=32, out_filters=16, se_ratio=0.25), 9, 3),
+    (B4[1], 96, 8), (B4[2], 96, 8), (B4[3], 48, 8), (B4[6], 48, 8), (B4[7], 24, 8),
+    (B4[10], 28, 4), (B4[16], 14, 4), (B4[17], 14, 4),
+], ids=["k3s1-ragged", "k3s2", "k5s1", "k5s2-ragged", "no-expand-ragged", "b4-1@96", "b4-2@96",
+        "b4-3@48", "b4-6@48", "b4-7@24", "b4-10@28", "b4-16@14", "b4-17@14"])
+def test_fused_block_kernel_matches_plain(dev, args, h, B):
+    blk = _randomize_bn(init_weights(MBConvBlock(**args), h), h + 1).to(dev).eval()
+    bp = fs.block_plan_from_args(args)
+    w = fs.fold_block_weights(blk, bp)
+    g = torch.Generator(device="cpu").manual_seed(h)
+    x = torch.randn((B, h, h, bp.cin), generator=g).to(dev).to(torch.bfloat16)
+    before = fs.run_block.launches
+    got = fs.run_block(bp, x, w)
+    torch.cuda.synchronize()
+    assert fs.run_block.launches == before + 1
+    _assert_two_bf16_steps(got, fs.run_block_plain(bp, x, w))
+    again = fs.run_block(bp, x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # fixed-order sums: the same bits every run
+    # Against the unfused module (float32, BatchNorm not folded).
+    with torch.no_grad():
+        ref = blk(x.float().permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    torch.testing.assert_close(got.float(), ref, atol=0.03, rtol=0.05)
+
+
+@pytest.mark.parametrize("variant,shape", [("b0", (2, 20, 12, 3)), ("b4", (4, 192, 192, 3)),
+                                           ("b4", (4, 224, 224, 3))])
+def test_fused_stem_kernel_matches_plain(dev, variant, shape):
+    bb = _randomize_bn(init_weights(EfficientNetBackbone(variant), 3), 4).to(dev).eval()
+    w = fs.fold_stem_weights(bb)
+    g = torch.Generator(device="cpu").manual_seed(shape[1])
+    x = torch.randn(shape, generator=g).to(dev).to(torch.bfloat16)
+    before = fs.run_stem.launches
+    got = fs.run_stem(x, w)
+    torch.cuda.synchronize()
+    assert fs.run_stem.launches == before + 1
+    assert got.shape == (shape[0], shape[1] // 2, shape[2] // 2, w[0].shape[0])
+    _assert_two_bf16_steps(got, fs.run_stem_plain(x, w))
+
+
+@pytest.mark.parametrize("idx,h,B", [(0, 11, 3), (3, 48, 8), (12, 14, 8)],
+                         ids=["b4-0-no-expand-ragged", "b4-3@48", "b4-12@14"])
+def test_fused_mbconv_kernel_matches_plain(dev, idx, h, B):
+    args = B4[idx]
+    blk = _randomize_bn(init_weights(MBConvBlock(**args), idx), idx + 1).to(dev).eval()
+    folded = fm.fold_mbconv_params(blk, args["expand_ratio"])
+    g = torch.Generator(device="cpu").manual_seed(idx)
+    x = torch.randn((B, h, h, args["in_filters"]), generator=g).to(dev)
+    before = fm.fused_mbconv.launches
+    got = fm.fused_mbconv(x, folded, args["expand_ratio"])
+    torch.cuda.synchronize()
+    assert fm.fused_mbconv.launches == before + 1
+    assert got.shape == (B, h, h, args["out_filters"]) and got.dtype == torch.bfloat16
+    _assert_two_bf16_steps(got, fm.fused_mbconv_plain(x, folded, args["expand_ratio"]))
+
+
 def test_kernels_reject_wrong_inputs(dev):
     z = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):
@@ -171,3 +264,14 @@ def test_kernels_reject_wrong_inputs(dev):
     with pytest.raises(ValueError):
         ik.int8_conv(q.reshape(1, 2, 4, 8), q.reshape(1, 1, 8, 8), torch.ones(3, device=dev),
                      torch.ones(8, device=dev))  # 3 scales for 1 image
+    args = B4[3]
+    bp = fs.block_plan_from_args(args)
+    w = fs.fold_block_weights(init_weights(MBConvBlock(**args), 0).to(dev), bp)
+    x = torch.zeros((1, 8, 8, bp.cin), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(TypeError):
+        fs.run_block(bp, x.float(), w)
+    with pytest.raises(ValueError):
+        fs.run_block(bp, x, [w[0].cpu()] + w[1:])  # w_exp on the CPU
+    with pytest.raises(ValueError):
+        fs.run_stem(torch.zeros((1, 8, 8, 3), dtype=torch.bfloat16, device=dev),
+                    [torch.zeros((48, 27), dtype=torch.bfloat16), torch.zeros(48, device=dev)])
