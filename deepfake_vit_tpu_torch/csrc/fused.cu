@@ -39,8 +39,9 @@
 // the depthwise reads its neighbours from shared memory, and the projection
 // accumulates over the chunks in registers (pixel x 4 interleaved output
 // channels per thread). The two 1x1 products are f32 FMAs over bf16 values
-// staged in shared memory: bf16 x bf16 is exact in f32, so only the order of
-// a sum differs from the plain PyTorch version in ops/fused_stages.py. The
+// widened to f32 when they are staged in shared memory: bf16 x bf16 is exact
+// in f32, so only the order of a sum differs from the plain PyTorch version
+// in ops/fused_stages.py. The
 // depthwise taps, the tile sums and the two squeeze-excite products use
 // separately rounded multiplies and adds (__fmul_rn / __fadd_rn: nvcc would
 // contract them to FMAs) in an order the plain version repeats, so that given
@@ -54,16 +55,18 @@
 // tensor-core peak) every block shape here is bound at 4 to 34 microseconds
 // for 128 images, by bytes down to 48x48 maps and by operations below.
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, this first
-// version takes 4x its bound for the stem, 22x for a block without an expand
-// conv at 96x96, 130x to 280x for the expanding blocks at 96x96 to 24x24 and
-// 410x for the widest block at 14x14 on 32 images (128 tiles for 132 SMs).
-// It runs on scalar f32 FMAs fed by 16-byte shared-memory loads, computes the
-// expand twice and on a halo of 1.6x to 2.3x the tile, stages each chunk's
-// weights without overlap, and pays a precise expf and an IEEE division per
-// SiLU, which at 24 to 56 input channels is of the order of the multiply-adds
-// of the element it activates. mma.sync / wgmma products, cp.async or TMA
-// staging, larger tiles and a cluster sharing d through distributed shared
-// memory (one pass) are later work.
+// version takes 4x its bound for the stem, 19x for a block without an expand
+// conv at 96x96, 120x to 230x for the expanding blocks at 96x96 to 24x24 and
+// 350x for the widest block at 14x14 on 32 images (128 tiles for 132 SMs).
+// It is bound by instruction issue, not by memory: scalar f32 FMAs fed by
+// 16-byte shared-memory loads (staging the operands as f32 instead of
+// unpacking bf16 in the inner loops made the 48x48 blocks 1.3x faster), the
+// expand computed twice and on a halo of 1.6x to 2.3x the tile, each chunk's
+// weights staged without overlap, and a precise expf and an IEEE division
+// per SiLU, which at 24 to 56 input channels is of the order of the
+// multiply-adds of the element it activates. mma.sync / wgmma products,
+// cp.async or TMA staging, larger tiles and a cluster sharing d through
+// distributed shared memory (one pass) are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,12 +82,15 @@ constexpr int CH = 32;               // expanded channels per chunk, one per lan
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
 constexpr int PB = 4;                // halo pixels per warp step of the expand
-constexpr int DROW = NPIX + 2;       // padded row of the scaled-d tile (conflict-free)
-constexpr int XPAD = 8;              // pad of an input-tile row: rows stay 16-byte aligned
+constexpr int DROW = NPIX + 1;       // padded row of the scaled-d tile (conflict-free)
+constexpr int XPAD = 4;              // pad of an input-tile row: rows stay 16-byte aligned
 constexpr int MAX_SMEM = 232448;     // 227 KB: the most one block can ask for
 
 __device__ __forceinline__ float silu_f(float v) { return v / (1.0f + expf(-v)); }
 __device__ __forceinline__ float sigmoid_f(float v) { return 1.0f / (1.0f + expf(-v)); }
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 // The two bf16 values of a packed word (little-endian: element 0 is low).
 __device__ __forceinline__ float lo_f(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float hi_f(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
@@ -92,14 +98,11 @@ __device__ __forceinline__ uint32_t pack2(float a, float b) {
   __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<uint32_t*>(&h);
 }
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_f(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-template <bool PROTO> struct EType { typedef bf16 type; };
-template <> struct EType<true> { typedef float type; };
+// Eight bf16 values widened to f32 (exact) and stored as two 16-byte words.
+__device__ __forceinline__ void widen8(float* dst, uint4 v) {
+  *reinterpret_cast<float4*>(dst) = make_float4(lo_f(v.x), hi_f(v.x), lo_f(v.y), hi_f(v.y));
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(lo_f(v.z), hi_f(v.z), lo_f(v.w), hi_f(v.w));
+}
 
 // ---------------------------------------------------------------------------
 // Stem: 3x3 stride-2 convolution on the NHWC image, TF "SAME" on even sizes
@@ -181,27 +184,31 @@ struct BlockArgs {
   int has_expand, residual;
 };
 
-// Byte offsets of the shared-memory regions, each 16-byte aligned.
+// Byte offsets of the shared-memory regions, each 16-byte aligned. Inputs,
+// weights and intermediates are staged as f32 (widened once, when staged) so
+// that the inner loops spend no instruction on unpacking bf16; values that
+// the block rounds to bf16 are rounded before they are stored.
 struct SmemLayout {
-  size_t x, e, wexp, taps, vecs, red, d, wproj, out, total;
+  size_t x, e, wexp, taps, vecs, red, inside, d, wproj, out, total;
 };
 
 inline size_t align16(size_t v) { return (v + 15) & ~(size_t)15; }
 
-SmemLayout smem_layout(const BlockArgs& a, bool proto, int pass) {
+SmemLayout smem_layout(const BlockArgs& a, int pass) {
   const size_t npin = (size_t)a.tin * a.tin;
   SmemLayout s;
   size_t off = 0;
-  s.x = off;     off = align16(off + npin * (a.cin + XPAD) * 2);
-  s.e = off;     off = align16(off + npin * CH * (proto ? 4 : 2));
-  s.wexp = off;  off = align16(off + (size_t)(a.cin / 8) * CH * 16);
-  s.taps = off;  off = align16(off + (size_t)a.k * a.k * CH * 4);
-  s.vecs = off;  off = align16(off + 3 * CH * 4);
-  s.red = off;   off = align16(off + NWARPS * CH * 4);
+  s.x = off;      off = align16(off + npin * (a.cin + XPAD) * 4);
+  s.e = off;      off = align16(off + npin * CH * 4);
+  s.wexp = off;   off = align16(off + (size_t)a.cin * CH * 4);
+  s.taps = off;   off = align16(off + (size_t)a.k * a.k * CH * 4);
+  s.vecs = off;   off = align16(off + 3 * CH * 4);
+  s.red = off;    off = align16(off + NWARPS * CH * 4);
+  s.inside = off; off = align16(off + npin);
   s.d = s.wproj = s.out = off;
   if (pass == 2) {
-    s.d = off;     off = align16(off + (size_t)CH * DROW * 2);
-    s.wproj = off; off = align16(off + (size_t)a.cout * CH * 2);
+    s.d = off;     off = align16(off + (size_t)CH * DROW * 4);
+    s.wproj = off; off = align16(off + (size_t)a.cout * CH * 4);
     s.out = off;   off = align16(off + (size_t)NPIX * (a.cout + 2) * 2);
   }
   s.total = off;
@@ -214,19 +221,19 @@ SmemLayout smem_layout(const BlockArgs& a, bool proto, int pass) {
 template <int PASS, int NJ, bool PROTO>
 __global__ void __launch_bounds__(THREADS)
 fused_block_pass_kernel(BlockArgs a, SmemLayout L) {
-  typedef typename EType<PROTO>::type ET;
   extern __shared__ __align__(16) unsigned char block_smem[];
-  bf16* xS = reinterpret_cast<bf16*>(block_smem + L.x);          // [npin][cin + XPAD]
-  ET* eS = reinterpret_cast<ET*>(block_smem + L.e);              // [npin][CH]
-  uint4* wexpS = reinterpret_cast<uint4*>(block_smem + L.wexp);  // [cin/8][CH], 8 bf16 each
-  float* tapsS = reinterpret_cast<float*>(block_smem + L.taps);  // [k*k][CH]
-  float* bexpS = reinterpret_cast<float*>(block_smem + L.vecs);  // [CH]
+  float* xS = reinterpret_cast<float*>(block_smem + L.x);          // [npin][cin + XPAD]
+  float* eS = reinterpret_cast<float*>(block_smem + L.e);          // [npin][CH]
+  float4* wexpS = reinterpret_cast<float4*>(block_smem + L.wexp);  // [cin/4][CH], 4 inputs each
+  float* tapsS = reinterpret_cast<float*>(block_smem + L.taps);    // [k*k][CH]
+  float* bexpS = reinterpret_cast<float*>(block_smem + L.vecs);    // [CH]
   float* bdwS = bexpS + CH;
   float* seS = bdwS + CH;
-  float* redS = reinterpret_cast<float*>(block_smem + L.red);    // [NWARPS][CH]
-  bf16* dS = reinterpret_cast<bf16*>(block_smem + L.d);          // [CH][DROW]
-  bf16* wprojS = reinterpret_cast<bf16*>(block_smem + L.wproj);  // [cout][CH]
-  bf16* outS = reinterpret_cast<bf16*>(block_smem + L.out);      // [NPIX][cout + 2]
+  float* redS = reinterpret_cast<float*>(block_smem + L.red);      // [NWARPS][CH]
+  unsigned char* insideS = block_smem + L.inside;                  // [npin]: pixel is on the image
+  float* dS = reinterpret_cast<float*>(block_smem + L.d);          // [CH][DROW]
+  float* wprojS = reinterpret_cast<float*>(block_smem + L.wproj);  // [cout][CH]
+  bf16* outS = reinterpret_cast<bf16*>(block_smem + L.out);        // [NPIX][cout + 2]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tile = blockIdx.x, bi = blockIdx.y;
@@ -243,10 +250,12 @@ fused_block_pass_kernel(BlockArgs a, SmemLayout L) {
     for (int idx = tid; idx < npin * vpp; idx += THREADS) {
       const int p = idx / vpp, v = idx - p * vpp;
       const int iy = iy0 + p / tin, ix = ix0 + p % tin;
+      const bool inside = iy >= 0 && iy < a.H && ix >= 0 && ix < a.W;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (iy >= 0 && iy < a.H && ix >= 0 && ix < a.W)
+      if (inside)
         val = *reinterpret_cast<const uint4*>(xb + ((size_t)iy * a.W + ix) * a.cin + v * 8);
-      *reinterpret_cast<uint4*>(xS + (size_t)p * xrow + v * 8) = val;
+      widen8(xS + (size_t)p * xrow + v * 8, val);
+      if (v == 0) insideS[p] = inside;
     }
   }
 
@@ -260,13 +269,18 @@ fused_block_pass_kernel(BlockArgs a, SmemLayout L) {
     const int cn = min(CH, a.cexp - c0);
     const bool live = lane < cn;
 
-    // 2. This chunk's weights.
+    // 2. This chunk's weights, widened to f32.
     if (a.has_expand) {
       const int nq = a.cin / 8;
       const uint4* wsrc = reinterpret_cast<const uint4*>(a.w_exp + (size_t)c0 * a.cin);
+      float* w = reinterpret_cast<float*>(wexpS);
       for (int idx = tid; idx < CH * nq; idx += THREADS) {
         const int c = idx & (CH - 1), kq = idx / CH;
-        wexpS[kq * CH + c] = c < cn ? wsrc[(size_t)c * nq + kq] : make_uint4(0u, 0u, 0u, 0u);
+        const uint4 v = c < cn ? wsrc[(size_t)c * nq + kq] : make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<float4*>(w + ((size_t)(2 * kq) * CH + c) * 4) =
+            make_float4(lo_f(v.x), hi_f(v.x), lo_f(v.y), hi_f(v.y));
+        *reinterpret_cast<float4*>(w + ((size_t)(2 * kq + 1) * CH + c) * 4) =
+            make_float4(lo_f(v.z), hi_f(v.z), lo_f(v.w), hi_f(v.w));
       }
     }
     for (int idx = tid; idx < k * k * CH; idx += THREADS) {
@@ -282,57 +296,52 @@ fused_block_pass_kernel(BlockArgs a, SmemLayout L) {
     if (PASS == 2) {
       for (int idx = tid; idx < a.cout * CH; idx += THREADS) {
         const int c = idx & (CH - 1), co = idx / CH;
-        wprojS[idx] = c < cn ? a.w_proj[(size_t)co * a.cexp + c0 + c] : __float2bfloat16_rn(0.0f);
+        wprojS[idx] = c < cn ? __bfloat162float(a.w_proj[(size_t)co * a.cexp + c0 + c]) : 0.0f;
       }
     }
     __syncthreads();
 
     // 3. e on the haloed tile: lane = channel, each warp PB pixels a step.
     if (a.has_expand) {
-      // Eight input channels a step: one 16-byte load of this lane's weights
-      // and one 16-byte broadcast load per pixel feed 8 FMAs per pixel, summed
-      // in channel order.
-      const int nq = a.cin / 8;
-      const uint4* xS128 = reinterpret_cast<const uint4*>(xS);
-      const int xrow128 = xrow / 8;
+      // Four input channels a step: one 16-byte load of this lane's weights
+      // and one 16-byte broadcast load per pixel feed 4 FMAs per pixel,
+      // summed in channel order.
+      const int n4 = a.cin / 4;
+      const float4* xS4 = reinterpret_cast<const float4*>(xS);
+      const int xrow4 = xrow / 4;
       for (int p0 = warp * PB; p0 < npin; p0 += NWARPS * PB) {
         float ae[PB];
-        const uint4* xr[PB];
+        const float4* xr[PB];
 #pragma unroll
         for (int i = 0; i < PB; ++i) {
           ae[i] = 0.0f;
-          xr[i] = xS128 + (size_t)min(p0 + i, npin - 1) * xrow128;
+          xr[i] = xS4 + (size_t)min(p0 + i, npin - 1) * xrow4;
         }
-        for (int kq = 0; kq < nq; ++kq) {
-          const uint4 wv = wexpS[kq * CH + lane];
+        for (int k4 = 0; k4 < n4; ++k4) {
+          const float4 wv = wexpS[k4 * CH + lane];
 #pragma unroll
           for (int i = 0; i < PB; ++i) {
-            const uint4 xv = xr[i][kq];
-            ae[i] = fmaf(lo_f(wv.x), lo_f(xv.x), ae[i]);
-            ae[i] = fmaf(hi_f(wv.x), hi_f(xv.x), ae[i]);
-            ae[i] = fmaf(lo_f(wv.y), lo_f(xv.y), ae[i]);
-            ae[i] = fmaf(hi_f(wv.y), hi_f(xv.y), ae[i]);
-            ae[i] = fmaf(lo_f(wv.z), lo_f(xv.z), ae[i]);
-            ae[i] = fmaf(hi_f(wv.z), hi_f(xv.z), ae[i]);
-            ae[i] = fmaf(lo_f(wv.w), lo_f(xv.w), ae[i]);
-            ae[i] = fmaf(hi_f(wv.w), hi_f(xv.w), ae[i]);
+            const float4 xv = xr[i][k4];
+            ae[i] = fmaf(wv.x, xv.x, ae[i]);
+            ae[i] = fmaf(wv.y, xv.y, ae[i]);
+            ae[i] = fmaf(wv.z, xv.z, ae[i]);
+            ae[i] = fmaf(wv.w, xv.w, ae[i]);
           }
         }
 #pragma unroll
         for (int i = 0; i < PB; ++i) {
           const int p = p0 + i;
           if (p < npin) {
-            const int iy = iy0 + p / tin, ix = ix0 + p % tin;
-            const bool inside = iy >= 0 && iy < a.H && ix >= 0 && ix < a.W;
-            const float v = (inside && live) ? silu_f(ae[i] + bexpS[lane]) : 0.0f;
-            from_f(eS + (size_t)p * CH + lane, v);
+            float v = (insideS[p] && live) ? silu_f(ae[i] + bexpS[lane]) : 0.0f;
+            if (!PROTO) v = bf16_round(v);
+            eS[(size_t)p * CH + lane] = v;
           }
         }
       }
     } else {
       for (int idx = tid; idx < npin * CH; idx += THREADS) {
         const int c = idx & (CH - 1), p = idx / CH;
-        from_f(eS + idx, c < cn ? __bfloat162float(xS[(size_t)p * xrow + c0 + c]) : 0.0f);
+        eS[idx] = c < cn ? xS[(size_t)p * xrow + c0 + c] : 0.0f;
       }
     }
     __syncthreads();
@@ -347,22 +356,22 @@ fused_block_pass_kernel(BlockArgs a, SmemLayout L) {
 #pragma unroll
       for (int xo = 0; xo < TILE; ++xo) ad[xo] = 0.0f;
       for (int dy = 0; dy < k; ++dy) {
-        const ET* erow = eS + (size_t)(S * yo + dy) * tin * CH + lane;
+        const float* erow = eS + (size_t)(S * yo + dy) * tin * CH + lane;
         for (int dx = 0; dx < k; ++dx) {
           const float tap = tapsS[(dy * k + dx) * CH + lane];
 #pragma unroll
           for (int xo = 0; xo < TILE; ++xo)
-            ad[xo] = __fadd_rn(ad[xo], __fmul_rn(to_f(erow[(S * xo + dx) * CH]), tap));
+            ad[xo] = __fadd_rn(ad[xo], __fmul_rn(erow[(S * xo + dx) * CH], tap));
         }
       }
 #pragma unroll
       for (int xo = 0; xo < TILE; ++xo) {
         const bool valid = (oy0 + yo < a.Ho) && (ox0 + xo < a.Wo) && live;
         float d = silu_f(ad[xo] + bdwS[lane]);
-        float db = __bfloat162float(__float2bfloat16_rn(d));
+        float db = bf16_round(d);
         if (!valid) { d = 0.0f; db = 0.0f; }
         dsum += PROTO ? db : d;
-        if (PASS == 2) dS[lane * DROW + yo * TILE + xo] = __float2bfloat16_rn(db * seS[lane]);
+        if (PASS == 2) dS[lane * DROW + yo * TILE + xo] = bf16_round(db * seS[lane]);
       }
     }
 
@@ -378,23 +387,23 @@ fused_block_pass_kernel(BlockArgs a, SmemLayout L) {
       }
     } else {
       __syncthreads();
-      // 5. Projection, accumulated over the chunks.
-      //    Four expanded channels a step (cn is a multiple of 8): four values
-      //    of d and one 8-byte broadcast load of weights per output channel.
+      // 5. Projection, accumulated over the chunks. Four expanded channels
+      //    a step (cn is a multiple of 8): four values of d and one 16-byte
+      //    broadcast load of weights per output channel.
       for (int c = 0; c < cn; c += 4) {
-        const float d0 = __bfloat162float(dS[(c + 0) * DROW + pp]);
-        const float d1 = __bfloat162float(dS[(c + 1) * DROW + pp]);
-        const float d2 = __bfloat162float(dS[(c + 2) * DROW + pp]);
-        const float d3 = __bfloat162float(dS[(c + 3) * DROW + pp]);
+        const float d0 = dS[(c + 0) * DROW + pp];
+        const float d1 = dS[(c + 1) * DROW + pp];
+        const float d2 = dS[(c + 2) * DROW + pp];
+        const float d3 = dS[(c + 3) * DROW + pp];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           const int co = cg + 4 * j;
           if (co < a.cout) {
-            const uint2 wv = *reinterpret_cast<const uint2*>(wprojS + co * CH + c);
-            acc[j] = fmaf(lo_f(wv.x), d0, acc[j]);
-            acc[j] = fmaf(hi_f(wv.x), d1, acc[j]);
-            acc[j] = fmaf(lo_f(wv.y), d2, acc[j]);
-            acc[j] = fmaf(hi_f(wv.y), d3, acc[j]);
+            const float4 wv = *reinterpret_cast<const float4*>(wprojS + co * CH + c);
+            acc[j] = fmaf(wv.x, d0, acc[j]);
+            acc[j] = fmaf(wv.y, d1, acc[j]);
+            acc[j] = fmaf(wv.z, d2, acc[j]);
+            acc[j] = fmaf(wv.w, d3, acc[j]);
           }
         }
       }
@@ -412,8 +421,7 @@ fused_block_pass_kernel(BlockArgs a, SmemLayout L) {
       const int co = cg + 4 * j;
       if (co < a.cout) {
         float v = acc[j] + a.b_proj[co];
-        if (a.residual)
-          v += __bfloat162float(xS[((size_t)(yo + a.pad) * tin + xo + a.pad) * xrow + co]);
+        if (a.residual) v += xS[((size_t)(yo + a.pad) * tin + xo + a.pad) * xrow + co];
         outS[pp * orow + co] = __float2bfloat16_rn(v);
       }
     }
@@ -465,7 +473,7 @@ fused_se_kernel(const float* __restrict__ partials, const float* __restrict__ w_
 
 template <int PASS, int NJ, bool PROTO>
 cudaError_t launch_pass(const BlockArgs& a, int B, cudaStream_t st) {
-  const SmemLayout L = smem_layout(a, PROTO, PASS);
+  const SmemLayout L = smem_layout(a, PASS);
   if (L.total > (size_t)MAX_SMEM) return cudaErrorInvalidConfiguration;
   static bool raised = false;  // one flag per instantiation
   if (!raised) {

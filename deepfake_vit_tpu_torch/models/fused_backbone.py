@@ -13,7 +13,7 @@ from typing import List, Tuple
 
 import torch
 
-from ..ops.fused_stages import (StagePlan, block_plan_from_args, fold_block_weights,
+from ..ops.fused_stages import (StagePlan, block_plan_from_args, check_plan, fold_block_weights,
                                 fold_stem_weights, run_stage)
 from .efficientnet import VARIANT_PARAMS, EfficientNetBackbone, block_args, round_filters
 
@@ -78,6 +78,7 @@ class FusedBackboneRunner:
             if plan.stem:
                 ws += fold_stem_weights(backbone)
             for i, bp in zip(idxs, plan.blocks):
+                check_plan(f"FusedBackboneRunner, block {i}", bp)  # fail here, not in a call
                 ws += fold_block_weights(getattr(backbone, f"block_{i}"), bp)
             self.weights.append(ws)
 

@@ -94,7 +94,7 @@ def fused_mbconv(x: torch.Tensor, folded: Dict[str, torch.Tensor],
         raise TypeError(f"fused_mbconv takes bf16 or f32 activations, got {x.dtype}")
     bp, weights = _plan_and_weights(x, folded, expand_ratio)
     x = x.to(torch.bfloat16)
-    check_block("fused_mbconv", bp, x, weights, proto=True)
+    check_block("fused_mbconv", bp, x, weights)
     if x.device.type == "cpu":
         return mbconv_plain(bp, x, weights, proto=True)
     if x.device.type != "cuda":

@@ -174,14 +174,11 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def check_block(name: str, bp: BlockPlan, x: torch.Tensor, weights, proto: bool) -> None:
-    """What the block kernels take; raises on everything else."""
-    _check_activation(name, x, bp.cin)
-    _check_weights(name, x.device, weights, _block_spec(bp))
+def check_plan(name: str, bp: BlockPlan) -> None:
+    """What the block kernels take, as far as the plan says; raises on
+    everything else."""
     if bp.kernel not in (3, 5) or bp.stride not in (1, 2):
         raise ValueError(f"{name}: kernel {bp.kernel} stride {bp.stride} is not k3/k5 at stride 1/2")
-    if bp.stride == 2 and (x.shape[1] % 2 or x.shape[2] % 2):
-        raise ValueError(f"{name}: a stride-2 block needs even H and W, got {tuple(x.shape[1:3])}")
     if bp.cin % 8 or bp.cexp % 8 or bp.cout % 8:
         raise ValueError(f"{name}: channel counts must be multiples of 8, got "
                          f"{bp.cin} -> {bp.cexp} -> {bp.cout}")
@@ -191,24 +188,35 @@ def check_block(name: str, bp: BlockPlan, x: torch.Tensor, weights, proto: bool)
         raise ValueError(f"{name}: a residual needs stride 1 and cin == cout")
     if bp.cout > _MAX_COUT:
         raise ValueError(f"{name}: cout = {bp.cout} exceeds the kernel's {_MAX_COUT}")
-    if x.shape[0] > 65535:
-        raise ValueError(f"{name}: batch {x.shape[0]} exceeds the grid's 65535")
-    need = block_smem_bytes(bp, proto)
+    need = block_smem_bytes(bp)
     if need > _MAX_SMEM:
         raise ValueError(f"{name}: the tile needs {need} bytes of shared memory, "
                          f"more than a block's {_MAX_SMEM}")
 
 
-def block_smem_bytes(bp: BlockPlan, proto: bool = False) -> int:
-    """Shared memory of pass 2 for this block (the layout of csrc/fused.cu)."""
+def check_block(name: str, bp: BlockPlan, x: torch.Tensor, weights) -> None:
+    """Plan, activation and weights of one block call; raises on what the
+    kernels do not take."""
+    check_plan(name, bp)
+    _check_activation(name, x, bp.cin)
+    _check_weights(name, x.device, weights, _block_spec(bp))
+    if bp.stride == 2 and (x.shape[1] % 2 or x.shape[2] % 2):
+        raise ValueError(f"{name}: a stride-2 block needs even H and W, got {tuple(x.shape[1:3])}")
+    if x.shape[0] > 65535:
+        raise ValueError(f"{name}: batch {x.shape[0]} exceeds the grid's 65535")
+
+
+def block_smem_bytes(bp: BlockPlan) -> int:
+    """Shared memory of pass 2 for this block (the layout of csrc/fused.cu:
+    input tile with halo, e, the chunk's weights, d, output tile)."""
     def a16(v):
         return (v + 15) & ~15
 
     tin = bp.stride * (_TILE - 1) + bp.kernel
     npin = tin * tin
-    regions = (npin * (bp.cin + 8) * 2, npin * _CHUNK * (4 if proto else 2),
-               (bp.cin // 8) * _CHUNK * 16, bp.kernel ** 2 * _CHUNK * 4, 3 * _CHUNK * 4,
-               8 * _CHUNK * 4, _CHUNK * (_TILE * _TILE + 2) * 2, bp.cout * _CHUNK * 2,
+    regions = (npin * (bp.cin + 4) * 4, npin * _CHUNK * 4, bp.cin * _CHUNK * 4,
+               bp.kernel ** 2 * _CHUNK * 4, 3 * _CHUNK * 4, 8 * _CHUNK * 4, npin,
+               _CHUNK * (_TILE * _TILE + 1) * 4, bp.cout * _CHUNK * 4,
                _TILE * _TILE * (bp.cout + 2) * 2)
     return sum(a16(r) for r in regions)
 
@@ -392,7 +400,7 @@ def run_block(bp: BlockPlan, x: torch.Tensor, weights: Sequence[torch.Tensor]) -
     tensors of :func:`fold_block_weights`. Returns (B, H/stride, W/stride,
     cout) bf16 NHWC.
     """
-    check_block("run_block", bp, x, weights, proto=False)
+    check_block("run_block", bp, x, weights)
     if x.device.type == "cpu":
         return run_block_plain(bp, x, weights)
     if x.device.type != "cuda":
@@ -422,6 +430,6 @@ def run_stage(plan: StagePlan, x: torch.Tensor, weights: Sequence[torch.Tensor])
 
 
 __all__ = ["BlockPlan", "StagePlan", "LAUNCHES_PER_BLOCK", "block_plan_from_args",
-           "block_smem_bytes", "check_block", "fold_stem_weights", "fold_block_weights", "run_stem",
+           "block_smem_bytes", "check_block", "check_plan", "fold_stem_weights", "fold_block_weights", "run_stem",
            "run_stem_plain", "run_block", "run_block_plain", "run_stage", "mbconv_plain",
            "depthwise_plain", "tile_mean_plain", "squeeze_excite_plain", "launch_block"]

@@ -415,3 +415,5 @@ def test_fused_wrappers_validate_and_count_only_launches():
     assert tmb.fused_mbconv(x, folded, 6).shape == (1, 8, 8, 16)
     assert counts == (tfs.run_stem.launches, tfs.run_block.launches, tmb.fused_mbconv.launches)
     assert tfs.block_smem_bytes(tfs.block_plan_from_args(_args(5, 1, 160, 160, 6))) < 232448
+    with pytest.raises(ValueError, match="block 23"):  # b6 at 224²: cout 200 at 14²
+        FusedBackboneRunner(EfficientNetBackbone("b6"), image_size=224)
