@@ -5,23 +5,26 @@
 1. Prints the card (``nvidia-smi`` name and power limit) and versions.
 2. Builds the CUDA kernels from ``deepfake_vit_tpu_torch/csrc`` (one nvcc
    per source, in parallel).
-3. Holds each of the eight kernels against its plain PyTorch version at the
-   serving paths' shapes and times kernel, plain version and, where one
+3. Holds each of the twelve kernels against its plain PyTorch version at
+   the serving paths' shapes and times kernel, plain version and, where one
    PyTorch call computes the same function, that call (``F.grid_sample``,
    ``torch._int_mm``: yardsticks the port never calls) with CUDA events:
    the median and range of several repeats. The two int8 kernels must agree
-   bit for bit, the three warp kernels within one bf16 step (they agree bit
-   for bit on these uint8-valued frames), the fused stem, MBConv block and
-   single-block prototype within two bf16 steps of the value (their 1×1
-   products sum in another order than the plain versions'); the share of
-   elements that differ at all is printed.
+   bit for bit, the seven crop and warp kernels (the fractional crop with
+   legacy and rank-1 "mxu" taps, the pooled crop, the warp with legacy,
+   "uw", "uw16" and int8 taps) within one bf16 step (they agree bit for
+   bit), "uw" and "uw16" with each other bit for bit, the fused stem,
+   MBConv block and single-block prototype within two bf16 steps of the
+   value (their 1×1 products sum in another order than the plain
+   versions'); the share of elements that differ at all is printed.
 4. Checks each pipeline on the card against the same pipeline on the CPU
-   (plain kernel versions, float32) on two frames with a drawn face.
-5. Serves five paths for a few batches at B = 32 and B = 128, twice, in
-   turns (A, B, bf16, C, D, then back) — all EfficientNet-B4 at full width
-   and depth (seeded weights), committed SCRFD weights, 320² detection on
-   640² uint8 frames, bf16 — with every kernel's launch count reset just
-   before and read just after each:
+   (plain kernel versions, float32) on two frames with drawn faces (three
+   faces of different sizes a frame for the multi-face path).
+5. Serves seven paths for a few batches at B = 32 and B = 128, twice, in
+   turns (A, B, bf16, C, D, E, F, then back) — all EfficientNet-B4 at full
+   width and depth (seeded weights), committed detector weights, 320²
+   detection on 640² uint8 frames, bf16 — with every kernel's launch count
+   reset just before and read just after each:
    * path A, the headline: int8 detector and int8 tail from block 10 with
      calibrated static scales, fractional window-128 warp, 192² faces;
    * path B, the class default: pooled window-160 warp, 224² faces;
@@ -29,9 +32,15 @@
    * path C, the fused backbone: the bf16 headline geometry with
      ``use_fused_backbone`` — stem and blocks 0-9 through the fused kernels;
    * path D, the class default with ``use_fused_backbone`` (224² faces:
-     stem and blocks 0-21), at B = 32 only.
-   Then drives the single-block prototype, which no pipeline runs, on two
-   B4 block shapes and holds it to the unfused module.
+     stem and blocks 0-21), at B = 32 only;
+   * path E, the int8-tap headline: path A with ``warp_tap_mode="int8"``
+     (rank-1 "mxu" crop, int8 warp);
+   * path F, multi-face serving: the class default geometry with the lite
+     detector, ``keep_top_k=3`` and ``warp_tap_mode="uw16"``, at B = 32
+     only (96 faces a batch).
+   Then drives what no pipeline runs: the single-block prototype on two B4
+   block shapes, held to the unfused module, and the "uw" warp through
+   ``warp_affine_windowed(tap_construction="uw")``, held to "uw16".
 6. Where the serving time goes: one batch per path and size under
    ``torch.profiler`` — device busy time against the batch time (the idle
    share), device time by kernel class, top kernels.
@@ -74,27 +83,28 @@ CROP_TOL, WARP_TOL, POOL_TOL, INT8_TOL = 1.0, 1.0, 1.0, 0.0
 # versions: two bf16 steps of the value, |k - p| <= FUSED_TOL * max(|p|, 1).
 FUSED_TOL = 2.0 ** -7
 FUSED_FEATURES_REL = 1e-2  # card vs CPU, fused paths: max |Δfeatures| / max |features|
+MULTI_K = 3  # path F's keep_top_k
 # Launches per served batch: 22 tail blocks x (expand, project); 1 + 12 + 3
 # + 3 + 6 detector convs; one crop and one warp; the stem and one launch
 # group (three device launches) per fused block: blocks 0-9 at 192² faces,
-# 0-21 at 224².
-_NO_FUSED = {"run_stem": 0, "run_block": 0, "fused_mbconv": 0}
-EXPECTED = {
-    "A int8 headline": {"int8_gemm": 44, "int8_conv": 25, "crop_frac": 1,
-                        "warp_affine_legacy": 1, "crop_pool": 0, **_NO_FUSED},
-    "B default pooled warp": {"int8_gemm": 0, "int8_conv": 0, "crop_frac": 0,
-                              "warp_affine_legacy": 1, "crop_pool": 1, **_NO_FUSED},
-    "bf16 headline geometry": {"int8_gemm": 0, "int8_conv": 0, "crop_frac": 1,
-                               "warp_affine_legacy": 1, "crop_pool": 0, **_NO_FUSED},
-    "C fused backbone": {"int8_gemm": 0, "int8_conv": 0, "crop_frac": 1,
-                         "warp_affine_legacy": 1, "crop_pool": 0, "run_stem": 1,
-                         "run_block": 10, "fused_mbconv": 0},
-    "D fused backbone, default geometry": {"int8_gemm": 0, "int8_conv": 0, "crop_frac": 0,
-                                           "warp_affine_legacy": 1, "crop_pool": 1,
-                                           "run_stem": 1, "run_block": 22, "fused_mbconv": 0},
-}
+# 0-21 at 224². Every kernel not named launches 0 times.
+KERNEL_NAMES = ("crop_frac", "crop_frac_mxu", "crop_pool", "warp_affine_legacy",
+                "warp_affine_uw", "warp_affine_uw16", "warp_affine_int8", "int8_gemm",
+                "int8_conv", "run_stem", "run_block", "fused_mbconv")
+_INT8 = {"int8_gemm": 44, "int8_conv": 25}
+EXPECTED = {path: {**dict.fromkeys(KERNEL_NAMES, 0), **counts} for path, counts in {
+    "A int8 headline": {**_INT8, "crop_frac": 1, "warp_affine_legacy": 1},
+    "B default pooled warp": {"crop_pool": 1, "warp_affine_legacy": 1},
+    "bf16 headline geometry": {"crop_frac": 1, "warp_affine_legacy": 1},
+    "C fused backbone": {"crop_frac": 1, "warp_affine_legacy": 1, "run_stem": 1, "run_block": 10},
+    "D fused backbone, default geometry": {"crop_pool": 1, "warp_affine_legacy": 1,
+                                           "run_stem": 1, "run_block": 22},
+    "E int8-tap headline": {**_INT8, "crop_frac_mxu": 1, "warp_affine_int8": 1},
+    "F multi-face, lite detector": {"crop_pool": 1, "warp_affine_uw16": 1},
+}.items()}
 # Batch sizes each path is served at (and profiled at, in the first round).
-PATH_BATCHES = {path: (BATCH,) if path.startswith("D") else PROFILE_BATCHES for path in EXPECTED}
+PATH_BATCHES = {path: (BATCH,) if path.startswith(("D", "F")) else PROFILE_BATCHES
+                for path in EXPECTED}
 # Fused-kernel shapes of phase 3: (flat B4 block index, input size, batch).
 # Blocks 1-7 at the 192² path's resolutions; block 17 at 14² is the widest
 # block of the 224² path (cexp 960).
@@ -114,9 +124,14 @@ CONV_SHAPES = (  # (name, H, Cin, Cout, k, stride)
 # Kernel-name fragments → class for the profile, first match wins.
 KERNEL_CLASSES = (
     ("host <-> device copy", ("memcpy",)),
-    ("crop_frac (port kernel)", ("crop_frac_kernel",)),
+    ("crop_frac (port kernel)", ("crop_frac_kernel<0>",)),
+    ("crop_frac_mxu (port kernel)", ("crop_frac_kernel<1>",)),
     ("crop_pool (port kernel)", ("crop_pool_kernel",)),
-    ("warp_affine_legacy (port kernel)", ("warp_legacy_kernel",)),
+    ("warp_affine_legacy (port kernel)", ("warp_bf16_kernel<0>",)),
+    ("warp_affine_uw / uw16 (port kernel)", ("warp_bf16_kernel<1>",)),
+    ("warp_affine_int8 (port kernel)", ("warp_int8_kernel",)),
+    ("crop / warp (port kernel, construction not in the name)",
+     ("crop_frac_kernel", "warp_bf16_kernel")),
     ("int8_gemm (port kernel)", ("int8_gemm_kernel",)),
     ("int8_conv (port kernel)", ("int8_conv_kernel",)),
     ("fused_stem (port kernel)", ("fused_stem_kernel",)),
@@ -237,22 +252,27 @@ def warp_footprint_bytes(coeffs, Hs, Ws, C, out_size) -> int:
 
 
 def build_pipeline(path: str, dtype=torch.bfloat16, device=None, scales=None):
-    """One of the five served configurations. Path A is calibrated as the
-    JAX benchmark calibrates its headline (8 uniform-noise faces, 4
+    """One of the seven served configurations. Paths A and E are calibrated
+    as the JAX benchmark calibrates its headline (8 uniform-noise faces, 4
     uniform-noise frames, seeded) unless ``scales`` hands the scales over."""
     from deepfake_vit_tpu_torch.configs import MODEL_CONFIG
     from deepfake_vit_tpu_torch.e2e import FusedPipeline
 
     common = dict(detection_input_size=DETECT, serving_size=SERVING, confidence_threshold=0.0,
                   dtype=dtype, device=device)
-    if path.startswith("A"):
+    int8 = path.startswith(("A", "E"))
+    if int8:
         tail_scales, det_scales = scales or (None, None)
         pipe = FusedPipeline(MODEL_CONFIG, use_int8_tail=True, int8_tail_start=TAIL_START,
                              warp_window=WINDOW, warp_fractional=True, use_int8_detector=True,
                              output_size=FACE, int8_act_scales=tail_scales,
-                             det_act_scales=det_scales, **common)
-    elif path.startswith(("B", "D")):  # default warp arguments and face size
-        pipe = FusedPipeline(MODEL_CONFIG, use_fused_backbone=path.startswith("D"), **common)
+                             det_act_scales=det_scales,
+                             warp_tap_mode="int8" if path.startswith("E") else "legacy", **common)
+    elif path.startswith(("B", "D", "F")):  # default warp arguments and face size
+        extra = (dict(detector_arch="lite", keep_top_k=MULTI_K, warp_tap_mode="uw16")
+                 if path.startswith("F") else {})
+        pipe = FusedPipeline(MODEL_CONFIG, use_fused_backbone=path.startswith("D"), **extra,
+                             **common)
         if (pipe.warp_window, pipe.warp_fractional, pipe.output_size) != (
                 POOL_WINDOW, False, POOL_FACE):
             fail("FusedPipeline's defaults are not the pooled window-160 warp to 224² faces")
@@ -261,7 +281,7 @@ def build_pipeline(path: str, dtype=torch.bfloat16, device=None, scales=None):
                              warp_fractional=True, warp_tap_mode="legacy",
                              use_fused_backbone=path.startswith("C"), **common)
     pipe.load_variables(seed=0)
-    if path.startswith("A") and scales is None:
+    if int8 and scales is None:
         pipe.calibrate_int8(np.random.default_rng(1).uniform(0, 255, (8, *FACE, 3)), batch_size=8)
         pipe.calibrate_int8_detector(
             np.random.default_rng(2).uniform(0, 255, (4, *SERVING, 3)).astype(np.float32))
@@ -274,11 +294,12 @@ def seeded_batches(batch: int, n: int, seed: int):
             for _ in range(n)]
 
 
-def drawn_face_frames(n: int, size: int, seed: int) -> np.ndarray:
-    """n uint8 RGB frames, one upright drawn face each on a colour gradient
-    (skin ellipse, sclera and iris, brows, nose, mouth): the committed
-    detector finds these with confidence near 1, so the best face is a
-    clear argmax on the card and on the CPU alike."""
+def drawn_face_frames(n: int, size: int, seed: int, faces: int = 1) -> np.ndarray:
+    """n uint8 RGB frames with ``faces`` upright drawn faces each on a colour
+    gradient (skin ellipse, sclera and iris, brows, nose, mouth): the
+    committed detectors find these with confidence near 1, so the chosen
+    faces are clear on the card and on the CPU alike. Several faces get a
+    vertical band of the frame each and sizes that differ by about 1.4×."""
     rng = np.random.default_rng(seed)
     ys, xs = np.mgrid[0:size, 0:size].astype(np.float32)
     frames = np.empty((n, size, size, 3), np.uint8)
@@ -286,25 +307,31 @@ def drawn_face_frames(n: int, size: int, seed: int) -> np.ndarray:
     def ellipse(img, cx, cy, ax, ay, color):
         img[((xs - cx) / ax) ** 2 + ((ys - cy) / ay) ** 2 <= 1.0] = color
 
+    band = size / faces
     for i in range(n):
         base, gx, gy = rng.uniform(40, 200, 3), rng.normal(0, 0.1, 3), rng.normal(0, 0.1, 3)
         img = np.clip(base + gx * xs[..., None] + gy * ys[..., None], 0, 255).astype(np.float32)
-        hw = rng.uniform(0.08, 0.22) * size
-        hh = hw * rng.uniform(1.15, 1.4)
-        cx, cy = rng.uniform(1.6 * hw, size - 1.6 * hw), rng.uniform(1.2 * hh, size - 1.2 * hh)
-        skin = np.asarray([230.0, 180.0, 150.0]) * rng.uniform(0.5, 1.0)
-        ellipse(img, cx, cy, hw, hh, skin)
-        ex, ey, er = 0.42 * hw, -0.28 * hh, max(2.0, 0.16 * hw)
-        for side in (-1, 1):
-            ellipse(img, cx + side * ex, cy + ey, er * 1.35, er * 0.85, (245, 245, 245))
-            ellipse(img, cx + side * ex, cy + ey, er * 0.55, er * 0.55, rng.uniform(10, 120, 3))
-            ellipse(img, cx + side * ex, cy + ey - 1.75 * er, er, max(1.0, 0.2 * er), (40, 30, 25))
-        ellipse(img, cx, cy + 0.085 * hh, max(1.0, 0.035 * hw), 0.135 * hh, skin * 0.75)
-        for side in (-1, 1):
-            ellipse(img, cx + side * 0.1 * hw, cy + 0.26 * hh, max(1.0, 0.045 * hw),
-                    max(1.0, 0.045 * hw), (60, 40, 35))
-        ellipse(img, cx, cy + 0.55 * hh, 0.32 * hw, max(2.0, 0.11 * hw),
-                (rng.uniform(120, 200), rng.uniform(30, 80), rng.uniform(40, 90)))
+        for k in range(faces):
+            if faces == 1:  # the draws of the one-face frames the earlier paths check
+                hw = rng.uniform(0.08, 0.22) * size
+            else:
+                hw = min(0.22 * size, band / 3.4) / 1.4 ** k * rng.uniform(0.9, 1.0)
+            hh = hw * rng.uniform(1.15, 1.4)
+            cx = rng.uniform(band * k + 1.6 * hw, band * (k + 1) - 1.6 * hw)
+            cy = rng.uniform(1.2 * hh, size - 1.2 * hh)
+            skin = np.asarray([230.0, 180.0, 150.0]) * rng.uniform(0.5, 1.0)
+            ellipse(img, cx, cy, hw, hh, skin)
+            ex, ey, er = 0.42 * hw, -0.28 * hh, max(2.0, 0.16 * hw)
+            for side in (-1, 1):
+                ellipse(img, cx + side * ex, cy + ey, er * 1.35, er * 0.85, (245, 245, 245))
+                ellipse(img, cx + side * ex, cy + ey, er * 0.55, er * 0.55, rng.uniform(10, 120, 3))
+                ellipse(img, cx + side * ex, cy + ey - 1.75 * er, er, max(1.0, 0.2 * er), (40, 30, 25))
+            ellipse(img, cx, cy + 0.085 * hh, max(1.0, 0.035 * hw), 0.135 * hh, skin * 0.75)
+            for side in (-1, 1):
+                ellipse(img, cx + side * 0.1 * hw, cy + 0.26 * hh, max(1.0, 0.045 * hw),
+                        max(1.0, 0.045 * hw), (60, 40, 35))
+            ellipse(img, cx, cy + 0.55 * hh, 0.32 * hw, max(2.0, 0.11 * hw),
+                    (rng.uniform(120, 200), rng.uniform(30, 80), rng.uniform(40, 90)))
         img += rng.normal(0, 4.0, img.shape)
         frames[i] = np.clip(img, 0, 255).astype(np.uint8)
     return frames
@@ -532,6 +559,98 @@ def check_fused(fs, fm, dev):
     return stem_row, block_rows, proto_rows
 
 
+def warp_grid(coeffs: torch.Tensor, out_size, src: int) -> torch.Tensor:
+    """The normalized sampling grid of ``F.grid_sample`` for the warp with
+    dst→src rows ``coeffs`` (N, 6) from a src×src image (align_corners=False)."""
+    ii = torch.arange(out_size[0], dtype=torch.float32, device=coeffs.device)[:, None]
+    jj = torch.arange(out_size[1], dtype=torch.float32, device=coeffs.device)[None, :]
+    a, b, c, d, e, f = (coeffs[:, k, None, None] for k in range(6))
+    return torch.stack([(2 * (a * jj + b * ii + c) + 1) / src - 1,
+                        (2 * (d * jj + e * ii + f) + 1) / src - 1], -1)
+
+
+def check_warp(name: str, fn, plain_fn, crop, A_win, out_size) -> dict:
+    """A warp kernel vs its plain version on the crops ``crop`` (N, S, S, C)
+    with dst→window affines ``A_win``, timed next to ``F.grid_sample`` on
+    the same input and grid and to its bytes bound (the crop pixels its
+    taps touch read once, the float32 output written once; the rank-1 and
+    int8 taps have the legacy support, so the footprint is the legacy one)."""
+    import torch.nn.functional as F
+
+    N, S, _, C = crop.shape
+    coeffs = A_win.reshape(N, 6).float().contiguous()
+    got = fn(crop, A_win, out_size, inverse=True)
+    torch.cuda.synchronize()
+    err = (got - plain_fn(crop, coeffs, out_size)).abs().max().item()
+    t = time_ms(lambda: fn(crop, A_win, out_size, inverse=True))
+    plain = time_ms(lambda: plain_fn(crop, coeffs, out_size), iters=5, repeats=5)
+    grid, crop_nchw = warp_grid(coeffs, out_size, S), crop.permute(0, 3, 1, 2).float().contiguous()
+    lib = time_ms(lambda: F.grid_sample(crop_nchw, grid, mode="bilinear", padding_mode="zeros",
+                                        align_corners=False))
+    nbytes = (warp_footprint_bytes(coeffs, S, S, C, out_size)
+              + N * out_size[0] * out_size[1] * C * 4 + N * 6 * 4)
+    print(f"{name} ({N}, {S}², {C}) -> {out_size[0]}²: max_abs {err} (tol {WARP_TOL}) kernel_ms "
+          f"{fmt(t)} plain_ms {fmt(plain)} grid_sample_ms {fmt(lib)} "
+          f"bound_us {nbytes / HBM_BYTES_PER_S * 1e6:.2f} ({nbytes} bytes)")
+    if not err <= WARP_TOL:
+        fail(f"{name} disagrees with its plain version: {err}")
+    return {"out": got, "max_abs_err": err, "ms": t["median"], "ms_range": [t["min"], t["max"]],
+            "plain_ms": plain["median"], "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": lib["median"],
+            "shape": f"{N} faces, {S}² crops -> {out_size[0]}²"}
+
+
+def check_rank1_warps(wk, frames_flat, dev):
+    """warp_affine_uw and warp_affine_uw16 at path F's shapes: 32 frames x 3
+    faces, pooled window-160 crops to 224² faces. They are one function:
+    their outputs must be equal bit for bit."""
+    from deepfake_vit_tpu_torch.ops.warp import max_window_levels, window_geometry
+
+    N = BATCH * MULTI_K
+    H, W = frames_flat.shape[1], frames_flat.shape[2] // 3
+    A_inv = seeded_geometry(N, 7, dev)
+    level, y0s, x0s, A_win = window_geometry(A_inv, POOL_FACE, (H, W), POOL_WINDOW,
+                                             max_window_levels((H, W), POOL_WINDOW), y_align=16)
+    idx = torch.arange(N, device=dev)
+    crop = wk.crop_pool(frames_flat[:BATCH], y0s[level.long(), idx] << level,
+                        x0s[level.long(), idx], level, POOL_WINDOW, 3,
+                        frame_idx=idx // MULTI_K).reshape(N, POOL_WINDOW, POOL_WINDOW, 3)
+    rows = {name: check_warp(name, getattr(wk, name), wk.warp_affine_uw_plain, crop, A_win,
+                             POOL_FACE) for name in ("warp_affine_uw", "warp_affine_uw16")}
+    if not torch.equal(rows["warp_affine_uw"].pop("out"), rows["warp_affine_uw16"].pop("out")):
+        fail("warp_affine_uw and warp_affine_uw16 differ on the card: they are one function")
+    print("warp_affine_uw == warp_affine_uw16 bit for bit on the card")
+    return rows
+
+
+def drive_uw(kernels, batch_u8: torch.Tensor, dev) -> dict:
+    """The "uw" tap mode is on no served path: drive it through its entry
+    point, ``warp_affine_windowed(tap_construction="uw")``, on a served
+    batch with 3 faces a frame, counting launches, and hold it to the same
+    call with "uw16". Returns the launch counts of the "uw" call."""
+    from deepfake_vit_tpu_torch.ops.warp import warp_affine_windowed
+
+    N = BATCH * MULTI_K
+    frames = batch_u8[:BATCH].to(dev)
+    A_inv = seeded_geometry(N, 9, dev)
+    args = dict(window=POOL_WINDOW, inverse=True,
+                frame_indices=torch.arange(N, device=dev) // MULTI_K)
+    for k in kernels:
+        k.launches = 0
+    uw = warp_affine_windowed(frames, A_inv, POOL_FACE, tap_construction="uw", **args)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    want = {**dict.fromkeys(KERNEL_NAMES, 0), "crop_pool": 1, "warp_affine_uw": 1}
+    if launches != want:
+        fail(f"warp_affine_windowed(tap_construction='uw'): launches {launches}, expected {want}")
+    uw16 = warp_affine_windowed(frames, A_inv, POOL_FACE, tap_construction="uw16", **args)
+    if not torch.equal(uw, uw16):
+        fail("the 'uw' and 'uw16' windowed warps differ on the card")
+    print(f"warp_affine_uw driven through warp_affine_windowed on {N} faces of {BATCH} served "
+          f"frames: launches {launches}; equal to the uw16 call bit for bit")
+    return launches
+
+
 def drive_prototype(fm, model, dev) -> int:
     """The single-block prototype is on no pipeline's path: drive it through
     its public entry on blocks 3 (48²) and 12 (14²) of the served model and
@@ -564,7 +683,7 @@ def card_vs_cpu(path: str, frames: np.ndarray, limits: dict) -> dict:
     with tf32_off():
         for where in ("cuda", "cpu"):
             p = build_pipeline(path, torch.float32, where, scales)
-            if path.startswith("A"):
+            if path.startswith(("A", "E")):
                 scales = (p.int8_act_scales, p.det_act_scales)
             outs[where] = {k: v.float().cpu().numpy() for k, v in p.forward(frames).items()}
             del p
@@ -576,7 +695,7 @@ def card_vs_cpu(path: str, frames: np.ndarray, limits: dict) -> dict:
         feats = outs["cpu"]["features"]
         err["features_rel"] = float(np.abs(outs["cuda"]["features"] - feats).max()
                                     / np.abs(feats).max())
-    print(f"path {path}: card vs CPU, float32, {len(frames)} frames with a drawn face "
+    print(f"path {path}: card vs CPU, float32, {len(frames)} frames with drawn faces "
           f"(confidence {outs['cuda']['confidence'].min():.3f}+): max_abs {err} (limits {limits})")
     if not all(err[k] <= limits[k] for k in limits):
         fail(f"path {path}: the pipeline on the card disagrees with the CPU: {err} > {limits}")
@@ -702,31 +821,38 @@ def main() -> None:
     if not crop_err <= CROP_TOL:
         fail(f"crop_frac disagrees with its plain version: {crop_err}")
 
-    crop = crop_k.reshape(N, WINDOW, WINDOW, C)
-    coeffs = A_win.reshape(N, 6).float().contiguous()
-    warp_k = wk.warp_affine_legacy(crop, A_win, FACE, inverse=True)
+    legacy_row = check_warp("warp_affine_legacy", wk.warp_affine_legacy,
+                            wk.warp_affine_legacy_plain, crop_k.reshape(N, WINDOW, WINDOW, C),
+                            A_win, FACE)
+    legacy_row.pop("out")
+    del crop_p
+
+    # The rank-1 ("mxu") crop and the int8 warp at path E's shapes, the
+    # rank-1 warps at path F's.
+    mxu_k = wk.crop_frac_mxu(*crop_args)
     torch.cuda.synchronize()
-    warp_p = wk.warp_affine_legacy_plain(crop, coeffs, FACE)
-    warp_err = (warp_k - warp_p).abs().max().item()
-    warp_t = time_ms(lambda: wk.warp_affine_legacy(crop, A_win, FACE, inverse=True))
-    warp_plain_t = time_ms(lambda: wk.warp_affine_legacy_plain(crop, coeffs, FACE),
-                           iters=5, repeats=5)
-    ii = torch.arange(FACE[0], dtype=torch.float32, device=dev)[:, None]
-    jj = torch.arange(FACE[1], dtype=torch.float32, device=dev)[None, :]
-    a, b, c, d, e, f = (coeffs[:, k, None, None] for k in range(6))
-    wgrid = torch.stack([(2 * (a * jj + b * ii + c) + 1) / WINDOW - 1,
-                         (2 * (d * jj + e * ii + f) + 1) / WINDOW - 1], -1)
-    crop_nchw = crop.permute(0, 3, 1, 2).float().contiguous()
-    warp_lib_t = time_ms(lambda: F.grid_sample(crop_nchw, wgrid, mode="bilinear",
-                                               padding_mode="zeros", align_corners=False))
-    warp_bytes = (warp_footprint_bytes(coeffs, WINDOW, WINDOW, C, FACE)
-                  + N * FACE[0] * FACE[1] * C * 4 + N * 6 * 4)
-    print(f"warp_affine_legacy: max_abs {warp_err} (tol {WARP_TOL}) kernel_ms {fmt(warp_t)} "
-          f"plain_ms {fmt(warp_plain_t)} grid_sample_ms {fmt(warp_lib_t)} "
-          f"bound_us {warp_bytes / HBM_BYTES_PER_S * 1e6:.2f} ({warp_bytes} bytes)")
-    if not warp_err <= WARP_TOL:
-        fail(f"warp_affine_legacy disagrees with its plain version: {warp_err}")
-    del frames_nchw, crop_p, warp_p, crop_nchw
+    mxu_err = (mxu_k.float() - wk.crop_frac_plain(*plain_args, construction="mxu").float()
+               ).abs().max().item()
+    mxu_t = time_ms(lambda: wk.crop_frac_mxu(*crop_args))
+    mxu_plain_t = time_ms(lambda: wk.crop_frac_plain(*plain_args, construction="mxu"),
+                          iters=5, repeats=5)
+    mxu_lib_t = time_ms(lambda: F.grid_sample(frames_nchw, grid, mode="bilinear",
+                                              padding_mode="zeros", align_corners=False))
+    print(f"crop_frac_mxu: max_abs {mxu_err} (tol {CROP_TOL}) kernel_ms {fmt(mxu_t)} "
+          f"plain_ms {fmt(mxu_plain_t)} grid_sample_ms {fmt(mxu_lib_t)} "
+          f"bound_us {crop_bytes / HBM_BYTES_PER_S * 1e6:.2f} ({crop_bytes} bytes, the legacy "
+          f"taps' footprint: the rank-1 taps have the same support)")
+    if not mxu_err <= CROP_TOL:
+        fail(f"crop_frac_mxu disagrees with its plain version: {mxu_err}")
+    r1 = r == 1.0
+    if not torch.equal(mxu_k[r1], crop_k[r1]):
+        fail("crop_frac_mxu is not an exact copy at r = 1")
+    del frames_nchw
+    int8_row = check_warp("warp_affine_int8", wk.warp_affine_int8, wk.warp_affine_int8_plain,
+                          mxu_k.reshape(N, WINDOW, WINDOW, C), A_win, FACE)
+    int8_row.pop("out")
+    del mxu_k, crop_k
+    rank1_rows = check_rank1_warps(wk, frames_flat, dev)
     pool_row = check_crop_pool(wk, frames_flat, A_inv, dev)
     del frames, frames_flat
     gemm_rows = check_int8_gemm(ik, dev)
@@ -747,14 +873,20 @@ def main() -> None:
     faces = drawn_face_frames(2, SERVING[0], 5)
     tight = {"bbox": 1e-2, "landmarks": 1e-2, "quality": 1e-2, "probs": 1e-3}
     fused = {**tight, "features_rel": FUSED_FEATURES_REL}
+    int8_limits = {"confidence": 0.02, "bbox": 0.5, "landmarks": 0.5, "quality": 0.02,
+                   "probs": 0.02}
     card_vs_cpu_err = {
         "bf16 headline geometry": card_vs_cpu("bf16 headline geometry", faces, tight),
         "B default pooled warp": card_vs_cpu("B default pooled warp", faces, tight),
-        "A int8 headline": card_vs_cpu("A int8 headline", faces, {
-            "confidence": 0.02, "bbox": 0.5, "landmarks": 0.5, "quality": 0.02, "probs": 0.02}),
+        "A int8 headline": card_vs_cpu("A int8 headline", faces, int8_limits),
         "C fused backbone": card_vs_cpu("C fused backbone", faces, fused),
         "D fused backbone, default geometry": card_vs_cpu(
             "D fused backbone, default geometry", faces, fused),
+        "E int8-tap headline": card_vs_cpu("E int8-tap headline", faces, int8_limits),
+        # Three faces of different sizes a frame: the NMS order is no near tie.
+        "F multi-face, lite detector": card_vs_cpu(
+            "F multi-face, lite detector", drawn_face_frames(2, SERVING[0], 6, faces=3),
+            {**tight, "confidence": 1e-3, "face_valid": 0.0}),
     }
 
     # 5 + 6. The five paths, served in turns (A, B, bf16, C, D, then back:
@@ -762,8 +894,11 @@ def main() -> None:
     #    round shows what the order does) and profiled once each. The same
     #    seeded batches feed all of them.
     served = {bsz: seeded_batches(bsz, N_BATCHES, bsz) for bsz in PROFILE_BATCHES}
-    kernels = (wk.crop_frac, wk.crop_pool, wk.warp_affine_legacy, ik.int8_gemm, ik.int8_conv,
-               fs.run_stem, fs.run_block, fm.fused_mbconv)
+    kernels = (wk.crop_frac, wk.crop_frac_mxu, wk.crop_pool, wk.warp_affine_legacy,
+               wk.warp_affine_uw, wk.warp_affine_uw16, wk.warp_affine_int8, ik.int8_gemm,
+               ik.int8_conv, fs.run_stem, fs.run_block, fm.fused_mbconv)
+    if tuple(k.__name__ for k in kernels) != KERNEL_NAMES:
+        fail("the counted kernels are not KERNEL_NAMES")
     pipes = {path: build_pipeline(path) for path in EXPECTED}
     paths = {path: {"launches_per_batch": expected, "rounds": [], "profile": []}
              for path, expected in EXPECTED.items()}
@@ -771,6 +906,7 @@ def main() -> None:
         for path in order:
             pipe, expected = pipes[path], EXPECTED[path]
             face, feat = pipe.output_size, pipe.model.feature_extractor.feature_dim
+            K = pipe.keep_top_k
             for bsz in PATH_BATCHES[path]:
                 warm_up(pipe, served[bsz][0])
                 for k in kernels:
@@ -778,14 +914,17 @@ def main() -> None:
                 results, secs = serve(pipe, served[bsz])
                 launches = {k.__name__: k.launches for k in kernels}
                 batch_ms = secs * 1e3 / N_BATCHES
-                res = {"round": rnd, "batch": bsz, "faces_per_s": bsz * N_BATCHES / secs,
-                       "ms_per_batch": batch_ms}
+                # Faces: every frame's K face slots are aligned and classified.
+                res = {"round": rnd, "batch": bsz, "faces_per_s": bsz * K * N_BATCHES / secs,
+                       "frames_per_s": bsz * N_BATCHES / secs, "ms_per_batch": batch_ms}
                 paths[path]["rounds"].append(res)
-                print(f"[{card}] round {rnd}, path {path} ({face[0]}² faces), batch {bsz}: served "
-                      f"{N_BATCHES} x {bsz} frames in {secs:.3f} s: {res['faces_per_s']:.1f} faces/s, "
+                print(f"[{card}] round {rnd}, path {path} ({face[0]}² faces, {K} a frame), batch "
+                      f"{bsz}: served {N_BATCHES} x {bsz} frames in {secs:.3f} s: "
+                      f"{res['faces_per_s']:.1f} faces/s, {res['frames_per_s']:.1f} frames/s, "
                       f"{batch_ms:.2f} ms/batch; launches {launches}")
                 for out in results:
-                    if out["probs"].shape != (bsz, 2) or out["features"].shape != (bsz, feat):
+                    lead = (bsz, K) if K > 1 else (bsz,)
+                    if out["probs"].shape != (*lead, 2) or out["features"].shape != (*lead, feat):
                         fail(f"bad output shapes {out['probs'].shape}, {out['features'].shape}")
                     for key in ("probs", "bbox", "landmarks", "quality", "features", "fake_prob"):
                         if not torch.isfinite(out[key].float()).all():
@@ -809,15 +948,19 @@ def main() -> None:
     proto_launches = drive_prototype(fm, pipes["C fused backbone"].model, dev)
     if proto_launches != len(PROTO_BLOCKS):
         fail(f"fused_mbconv counted {proto_launches} launches for {len(PROTO_BLOCKS)} calls")
+    uw_launches = drive_uw(kernels, served[BATCH][0], dev)
     del pipes
 
     # The kernels' line: launches from the headline path (path A), crop_pool's
-    # from path B, the one path that runs it, the fused stem's and block's
+    # from path B, the first path that runs it, the fused stem's and block's
     # from path C (one launch of run_block is a group of three device
-    # launches), the prototype's from its own drive. The rows with several
-    # shapes carry their first; "shapes" holds every measured shape.
-    a_launches, b_launches, c_launches = (paths[k]["launches"] for k in (
-        "A int8 headline", "B default pooled warp", "C fused backbone"))
+    # launches), the rank-1 crop's and the int8 warp's from path E, the uw16
+    # warp's from path F, the prototype's and the uw warp's from their own
+    # drives. The rows with several shapes carry their first; "shapes" holds
+    # every measured shape.
+    a_launches, b_launches, c_launches, e_launches, f_launches = (paths[k]["launches"] for k in (
+        "A int8 headline", "B default pooled warp", "C fused backbone", "E int8-tap headline",
+        "F multi-face, lite detector"))
     print(f"fused backbone: {fs.LAUNCHES_PER_BLOCK} device launches per block launch group; "
           f"path C makes 1 + {EXPECTED['C fused backbone']['run_block']} groups = "
           f"{1 + fs.LAUNCHES_PER_BLOCK * EXPECTED['C fused backbone']['run_block']} device "
@@ -825,11 +968,13 @@ def main() -> None:
           f"{EXPECTED['D fused backbone, default geometry']['run_block']} groups = "
           f"{1 + fs.LAUNCHES_PER_BLOCK * EXPECTED['D fused backbone, default geometry']['run_block']}")
 
-    def row(name, source, replaces, launches, m, shapes=None):
+    def row(name, source, replaces, launches, m, shapes=None, construction=None):
         out = {"name": name, "route": "cuda", "source": f"deepfake_vit_tpu_torch/csrc/{source}",
                "replaces": replaces, "launches": launches,
                **{k: m[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")}}
+        if construction is not None:  # the TPU kernel's construction this one replaces
+            out["construction"] = construction
         if shapes is not None:
             out["max_abs_err"] = max(r["max_abs_err"] for r in shapes)
             out["shape"], out["shapes"] = m["shape"], shapes
@@ -842,10 +987,19 @@ def main() -> None:
 
     report = {"kernels": [
         row("crop_frac", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:564",
-            a_launches["crop_frac"], warp_m(crop_err, crop_t, crop_plain_t, crop_bytes, crop_lib_t)),
+            a_launches["crop_frac"], warp_m(crop_err, crop_t, crop_plain_t, crop_bytes, crop_lib_t),
+            construction="legacy"),
+        row("crop_frac_mxu", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:564",
+            e_launches["crop_frac_mxu"],
+            warp_m(mxu_err, mxu_t, mxu_plain_t, crop_bytes, mxu_lib_t), construction="mxu"),
         row("warp_affine_legacy", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:101",
-            a_launches["warp_affine_legacy"],
-            warp_m(warp_err, warp_t, warp_plain_t, warp_bytes, warp_lib_t)),
+            a_launches["warp_affine_legacy"], legacy_row, construction="legacy"),
+        row("warp_affine_uw", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:101",
+            uw_launches["warp_affine_uw"], rank1_rows["warp_affine_uw"], construction="uw"),
+        row("warp_affine_uw16", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:101",
+            f_launches["warp_affine_uw16"], rank1_rows["warp_affine_uw16"], construction="uw16"),
+        row("warp_affine_int8", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:101",
+            e_launches["warp_affine_int8"], int8_row, construction="int8"),
         row("crop_pool", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:356",
             b_launches["crop_pool"], pool_row),
         row("int8_gemm", "int8.cu", "deepfake_vit_tpu/models/int8_tail.py:42",
@@ -865,9 +1019,11 @@ def main() -> None:
     extra = {"card": card, "kind": kind, "faces_per_s": headline["faces_per_s"],
              "kernel_faces": N, "crop_buckets": hist, "r_eq_1_faces": n_r1,
              "timings_ms": {"crop_frac": crop_t, "crop_frac_plain": crop_plain_t,
-                            "crop_grid_sample": crop_lib_t, "warp_affine_legacy": warp_t,
-                            "warp_plain": warp_plain_t, "warp_grid_sample": warp_lib_t},
-             "bound_bytes": {"crop_frac": crop_bytes, "warp_affine_legacy": warp_bytes},
+                            "crop_grid_sample": crop_lib_t, "crop_frac_mxu": mxu_t,
+                            "crop_frac_mxu_plain": mxu_plain_t},
+             "warp_rows": {"warp_affine_legacy": legacy_row, "warp_affine_int8": int8_row,
+                           **rank1_rows},
+             "bound_bytes": {"crop_frac": crop_bytes},
              "crop_pool": pool_row, "card_vs_cpu": card_vs_cpu_err, "paths": paths,
              "device_launches_per_fused_block": fs.LAUNCHES_PER_BLOCK,
              "torch": torch.__version__, "cuda": torch.version.cuda}

@@ -7,17 +7,22 @@ quality scoring, ImageNet normalization and the EfficientNet + attention
 classifier — all on the pipeline's device, with static shapes and no host
 round-trip between stages.
 
-Ported: ``keep_top_k=1``; the pooled windowed warp (the class default) and
-the fractional one, both with legacy taps; bf16 or float32; the SCRFD
-detector family, in its own dtype or as the int8 graph
-(``use_int8_detector``); the int8 late-stage classifier tail
-(``use_int8_tail``) with ``calibrate_int8``/``calibrate_int8_detector``;
-the fused early backbone stages (``use_fused_backbone``: stem and MBConv
-blocks through the fused kernels, which wins over the int8 tail when both
-are set, as in the JAX graph); ``compute_quality=False``. Every other
-option of the JAX pipeline (``keep_top_k > 1``, the ``uw``/``uw16``/``int8``
-tap modes, the lite detector, ``use_s2d_early``) raises
-``NotImplementedError``.
+Ported: the best face per frame (``keep_top_k=1``) and multi-face serving
+(``keep_top_k=K > 1``: the top-M anchors, fixed-size NMS at
+``nms_threshold``, K faces per frame sharing its pixels through
+``frame_idx``, outputs (B, K, …) with ``face_valid``); the pooled windowed
+warp (the class default), the fractional one and, when the frame is no
+larger than the window, the whole-frame warp, each with the tap modes
+``legacy``, ``uw``, ``uw16`` and ``int8`` (``warp_tap_mode``); bf16 or
+float32; the SCRFD detector family, in its own dtype or as the int8 graph
+(``use_int8_detector``), and the S2D-Lite family (``detector_arch="lite"``);
+the int8 late-stage classifier tail (``use_int8_tail``) with
+``calibrate_int8``/``calibrate_int8_detector``; the fused early backbone
+stages (``use_fused_backbone``: stem and MBConv blocks through the fused
+kernels, which wins over the int8 tail when both are set, as in the JAX
+graph); ``compute_quality=False``. ``use_s2d_early`` is not ported and
+raises ``NotImplementedError``; the JAX class's ``make_sharded`` has no
+counterpart yet.
 """
 
 from __future__ import annotations
@@ -36,20 +41,14 @@ from .models.layers import init_weights
 from .models.scrfd_int8 import ScrfdInt8Runner, calibrate_det_act_scales
 from .ops.anchors import STRIDES, all_anchor_centers, decode_boxes, decode_landmarks
 from .ops.image import normalize_imagenet
+from .ops.nms import nms_batched
 from .ops.quality import overall_quality
 from .ops.umeyama import transform_points, umeyama
-from .ops.warp import _avg_pool2, warp_affine_windowed
-from .ops.warp_kernel import warp_affine_legacy
+from .ops.warp import _avg_pool2, warp_affine_auto, warp_affine_windowed
+from .ops.warp_kernel import WARP_KERNELS
 from .preprocessing.aligner import DEFAULT_REFERENCE_LANDMARKS, _LANDMARK_ORDER
 from .preprocessing.detector import build_detection_net, default_weights_path
 from .utils.msgpack import msgpack_restore
-
-_NEXT_SLICE = ("the next slice of the port (multi-face serving, the uw/uw16/int8 tap modes, "
-               "the lite detector and use_s2d_early)")
-
-
-def _not_ported(option: str) -> NotImplementedError:
-    return NotImplementedError(f"{option} is not ported yet: it belongs to {_NEXT_SLICE}")
 
 
 class FusedPipeline:
@@ -57,9 +56,16 @@ class FusedPipeline:
 
     ``forward(frames)`` with frames (B, H, W, 3) RGB [0, 255] at serving
     size (uint8 preferred) returns a dict of per-frame tensors: every frame
-    yields its best face with a validity flag. Weights come from
+    yields its best face with a validity flag (K faces with ``keep_top_k``). Weights come from
     ``init_variables`` (seeded) or ``load_variables`` (seeded, then the
     committed detector weights and an optional classifier checkpoint).
+
+    ``keep_top_k=K > 1`` serves up to K faces per frame: outputs gain a
+    faces axis (B, K, …) and a ``face_valid`` mask (the NMS survivors above
+    the confidence threshold). ``warp_tap_mode`` picks the warp kernel's
+    taps ("legacy", "uw", "uw16", "int8"; see ``ops/warp.py``);
+    ``detector_arch`` the detector family ("scrfd" or "lite", each with its
+    committed weights).
 
     ``use_int8_tail`` runs the backbone from block ``int8_tail_start``
     (default: ``default_tail_start``) through the s8 GEMM kernel and
@@ -97,20 +103,22 @@ class FusedPipeline:
         use_int8_detector: bool = False,
         det_act_scales: Optional[Dict[str, float]] = None,
         keep_top_k: int = 1,
+        nms_threshold: float = 0.4,
         compute_quality: bool = True,
         detector_arch: str = "scrfd",
         device: Optional[Union[str, torch.device]] = None,
     ):
         if use_int8_detector and detector_arch != "scrfd":
             raise ValueError("use_int8_detector supports the scrfd family only")
-        if keep_top_k != 1:
-            raise _not_ported("keep_top_k > 1 (multi-face serving with NMS)")
-        if warp_tap_mode != "legacy":
-            raise _not_ported(f"warp_tap_mode={warp_tap_mode!r}")
-        if detector_arch != "scrfd":
-            raise _not_ported(f"detector_arch={detector_arch!r}")
+        if warp_tap_mode not in WARP_KERNELS:
+            raise ValueError(f"unknown warp_tap_mode {warp_tap_mode!r}; "
+                             f"expected one of {sorted(WARP_KERNELS)}")
+        if keep_top_k < 1:
+            raise ValueError(f"keep_top_k must be at least 1, got {keep_top_k}")
         if use_s2d_early:
-            raise _not_ported("use_s2d_early")
+            raise NotImplementedError(
+                "use_s2d_early is not ported yet: models/s2d_early.py reaches no TPU kernel and "
+                "is among the modules still missing from the port (ROADMAP.md, Queue A item 6)")
 
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -119,6 +127,10 @@ class FusedPipeline:
         self.output_size = tuple(output_size)
         self.warp_window = warp_window
         self.warp_fractional = warp_fractional
+        self.warp_tap_mode = warp_tap_mode
+        self.keep_top_k = int(keep_top_k)
+        self.nms_threshold = float(nms_threshold)
+        self.detector_arch = detector_arch
         self.confidence_threshold = confidence_threshold
         self.compute_quality = compute_quality
         self.use_fused_backbone = use_fused_backbone
@@ -175,13 +187,14 @@ class FusedPipeline:
                        detector_weights: Optional[str] = "default"):
         """Init, then overlay trained weights from flax msgpack files.
 
-        ``detector_weights="default"`` loads the committed SCRFD weights
-        (None keeps the seeded init); ``classifier_checkpoint`` is a
-        framework checkpoint (msgpack with ``params``/``batch_stats``).
+        ``detector_weights="default"`` loads the committed weights of the
+        pipeline's detector family (None keeps the seeded init);
+        ``classifier_checkpoint`` is a framework checkpoint (msgpack with
+        ``params``/``batch_stats``).
         """
         self.init_variables(seed)
         if detector_weights == "default":
-            detector_weights = default_weights_path("scrfd")
+            detector_weights = default_weights_path(self.detector_arch)
         if classifier_checkpoint:
             ckpt = msgpack_restore(classifier_checkpoint)
             load_flax_variables(self.model, {"params": ckpt["params"],
@@ -273,20 +286,42 @@ class FusedPipeline:
         # pixels to bf16 regardless.
         frames = frames.to(self.dtype)
 
-        # 0–1. Detection canvas, detection network + decode; the best face
-        #    is the argmax.
+        # 0–1. Detection canvas, detection network + decode. One face per
+        #    frame is the argmax; K faces are the NMS survivors of the top-M
+        #    anchors.
+        B, K = frames.shape[0], self.keep_top_k
         outs = (self._det_int8 if self.use_int8_detector else self.detector)(self._canvas(frames))
         scores = torch.cat([torch.sigmoid(outs[s]["scores"]) for s in STRIDES], dim=1)
         dist = torch.cat([outs[s]["bbox"] for s in STRIDES], dim=1)
         kps = torch.cat([outs[s]["kps"] for s in STRIDES], dim=1)
         boxes = decode_boxes(self._centers, self._strides, dist)
         landmarks = decode_landmarks(self._centers, self._strides, kps)
-        best = scores.argmax(dim=1)
-        rows = torch.arange(scores.shape[0], device=scores.device)
-        conf = scores[rows, best]
-        bbox = boxes[rows, best]
-        lms = landmarks[rows, best]
-        has_face = conf >= self.confidence_threshold
+        rows = torch.arange(B, device=scores.device)
+        frame_idx = None
+        if K == 1:
+            best = scores.argmax(dim=1)
+            conf = scores[rows, best]
+            bbox = boxes[rows, best]
+            lms = landmarks[rows, best]
+            has_face = conf >= self.confidence_threshold
+        else:
+            # Static top-M prefilter: NMS in O(K·M), not O(K·A). A stable
+            # sort keeps the lower anchor first on tied scores, as
+            # lax.top_k does.
+            M = min(max(8 * K, 32), scores.shape[1])
+            top_i = torch.sort(scores, dim=1, descending=True, stable=True).indices[:, :M]
+            top_s = scores.gather(1, top_i)
+            top_boxes = boxes[rows[:, None], top_i]
+            top_lms = landmarks[rows[:, None], top_i]
+            sel, valid = nms_batched(top_boxes.float(), top_s.float(),
+                                     iou_threshold=self.nms_threshold, max_outputs=K)
+            safe = sel.clamp_min(0)
+            conf = top_s.gather(1, safe).reshape(B * K)
+            bbox = top_boxes[rows[:, None], safe].reshape(B * K, 4)
+            lms = top_lms[rows[:, None], safe].reshape(B * K, 5, 2)
+            has_face = (valid.reshape(B * K) & (conf >= self.confidence_threshold))
+            # The K faces of a frame share its pixels: no frame copies.
+            frame_idx = rows.repeat_interleave(K)
 
         # Canvas → serving coords (pixel centers: u_s = r·u + (r−1)/2).
         r = self._pool_ratio
@@ -299,10 +334,13 @@ class FusedPipeline:
         tform = umeyama(lms, self.reference.expand(lms.shape))
         if self._windowed:
             aligned = warp_affine_windowed(frames, tform, self.output_size,
-                                           window=self.warp_window,
-                                           fractional=self.warp_fractional)
+                                           window=self.warp_window, frame_indices=frame_idx,
+                                           fractional=self.warp_fractional,
+                                           tap_construction=self.warp_tap_mode)
         else:
-            aligned = warp_affine_legacy(frames, tform, self.output_size)
+            src = frames if frame_idx is None else frames[frame_idx]
+            aligned = warp_affine_auto(src, tform, self.output_size,
+                                       tap_construction=self.warp_tap_mode)
         aligned_lms = transform_points(tform, lms)
 
         # 3. Quality scoring on the aligned face (skippable).
@@ -330,7 +368,7 @@ class FusedPipeline:
         else:
             logits, features = self.model(norm, aligned_lms)
         probs = torch.softmax(logits, dim=-1)
-        return {
+        out = {
             "has_face": has_face,
             "confidence": conf,
             "bbox": bbox,
@@ -341,6 +379,11 @@ class FusedPipeline:
             "fake_prob": torch.where(has_face, probs[:, 1], torch.zeros_like(probs[:, 1])),
             "features": features,
         }
+        if K > 1:
+            # (B·K, …) → (B, K, …); the validity mask also under its config name.
+            out = {k: v.reshape(B, K, *v.shape[1:]) for k, v in out.items()}
+            out["face_valid"] = out["has_face"]
+        return out
 
     # ------------------------------------------------------------------
     def predict_clip(self, frames, threshold: float = 0.5) -> Dict[str, Any]:

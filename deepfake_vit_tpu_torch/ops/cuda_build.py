@@ -29,9 +29,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # The extern "C" interface of csrc/*.cu; every function returns cudaError.
 _SIGNATURES = {
-    "dfv_crop_frac_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "dfv_crop_frac_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dfv_crop_pool_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "dfv_warp_affine_legacy_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dfv_warp_affine_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "dfv_warp_affine_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "dfv_int8_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "dfv_int8_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _I, _P],

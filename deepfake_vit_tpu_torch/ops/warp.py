@@ -8,7 +8,14 @@ the output size — both steps through the hand-written kernels of
 ``ops/warp_kernel.py``. With ``fractional=True`` the window is resampled at
 the factor ``r`` that fits the output quad (``window_geometry_frac``);
 otherwise it is cut from the 2ˡ× average-pooled frame at the smallest mip
-level ``l`` whose quad fits (``window_geometry``).
+level ``l`` whose quad fits (``window_geometry``). ``warp_affine_auto``
+warps whole images through the same warp kernels.
+
+``tap_construction`` picks the warp kernel's taps as the JAX tap modes do:
+"legacy", "uw" / "uw16" (rank-1 bf16 taps; one function) or "int8" (q7
+vertical taps, s8 pixels). Any mode but "legacy" also switches the
+fractional crop to its rank-1 "mxu" taps; the pooled crop has one function
+for both constructions.
 
 The geometry decides which pixels a crop reads, so it is computed in
 float32 with the JAX package's operation order: the 16-aligned strip
@@ -23,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from .umeyama import invert_affine
-from .warp_kernel import crop_frac, crop_pool, warp_affine_legacy
+from .warp_kernel import WARP_KERNELS, crop_frac, crop_frac_mxu, crop_pool
 
 
 def _bilinear_sample_one(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
@@ -267,13 +274,9 @@ def warp_affine_windowed(
     ``fractional=True``: the window is resampled at the per-face factor
     ``r`` with bilinear point taps (``window_geometry_frac``) by the
     fractional crop kernel; its strip buckets follow from the frame height.
-    Only the ``"legacy"`` tap construction is ported.
+    ``tap_construction``: see the module docstring.
     """
-    if tap_construction != "legacy":
-        raise NotImplementedError(
-            f"tap construction {tap_construction!r} is not ported yet (a later "
-            "port slice); only 'legacy' is"
-        )
+    warp = _warp_kernel(tap_construction)
     B, Hs, Ws, C = images.shape
     N = matrices.shape[0]
     if fractional:
@@ -299,8 +302,9 @@ def warp_affine_windowed(
         level, strip0s, r, off_y, x0f, A_win = window_geometry_frac(
             A_inv, out_size, (Hs, Ws), window, frac_window_levels(Hs, window), y_align=16
         )
-        crop = crop_frac(frames_flat, strip0s[level.long(), idx], level, r, off_y, x0f,
-                         window, C, frame_idx=frame_indices)
+        crop_fn = crop_frac if tap_construction == "legacy" else crop_frac_mxu
+        crop = crop_fn(frames_flat, strip0s[level.long(), idx], level, r, off_y, x0f,
+                       window, C, frame_idx=frame_indices)
     else:
         # bf16 frames as in the fractional path, hence 16-row aligned starts.
         level, y0s, x0s, A_win = window_geometry(
@@ -309,4 +313,21 @@ def warp_affine_windowed(
         y0_l0 = y0s[level.long(), idx] << level
         crop = crop_pool(frames_flat, y0_l0, x0s[level.long(), idx], level, window, C,
                          frame_idx=frame_indices)
-    return warp_affine_legacy(crop.reshape(N, window, window, C), A_win, out_size, inverse=True)
+    return warp(crop.reshape(N, window, window, C), A_win, out_size, inverse=True)
+
+
+def _warp_kernel(tap_construction: str):
+    if tap_construction not in WARP_KERNELS:
+        raise ValueError(f"unknown tap construction {tap_construction!r}; "
+                         f"expected one of {sorted(WARP_KERNELS)}")
+    return WARP_KERNELS[tap_construction]
+
+
+def warp_affine_auto(images: torch.Tensor, matrices: torch.Tensor, out_size: Tuple[int, int],
+                     inverse: bool = False, tap_construction: str = "legacy") -> torch.Tensor:
+    """Whole-image warp through the warp kernel of ``tap_construction``
+    (bilinear, border 0; images cast to bf16). Returns (B, Ho, Wo, C)
+    float32. The JAX function of this name runs its Pallas kernel on the
+    TPU and the exact float32 warp elsewhere; here the kernel runs on a
+    CUDA device and its plain version on the CPU."""
+    return _warp_kernel(tap_construction)(images, matrices, out_size, inverse=inverse)

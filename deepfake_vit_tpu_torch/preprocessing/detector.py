@@ -8,14 +8,16 @@ read by path (``utils/msgpack.py``) and carried across by
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
+from ..models.lite_detector import LiteDetector
 from ..models.scrfd import ScrfdDetector
 
 _WEIGHTS_DIR = Path(__file__).resolve().parents[2] / "deepfake_vit_tpu" / "weights"
-DEFAULT_WEIGHTS_BY_MODEL = {"scrfd": _WEIGHTS_DIR / "scrfd_synface.msgpack"}
+DEFAULT_WEIGHTS_BY_MODEL = {"scrfd": _WEIGHTS_DIR / "scrfd_synface.msgpack",
+                            "lite": _WEIGHTS_DIR / "lite_synface.msgpack"}
 
 
 def default_weights_path(model: str = "scrfd") -> Optional[str]:
@@ -25,10 +27,15 @@ def default_weights_path(model: str = "scrfd") -> Optional[str]:
 
 
 def build_detection_net(model: str = "scrfd", dtype: torch.dtype = torch.float32,
-                        stem_pool: int = 1) -> ScrfdDetector:
-    """Detection net factory: 'scrfd' (alias 'retinaface') only."""
+                        stem_pool: int = 1) -> Union[ScrfdDetector, LiteDetector]:
+    """Detection net factory: 'scrfd' (alias 'retinaface') and 'lite'.
+    ``stem_pool=p`` builds the network that takes p·canvas frames and folds
+    the p× average pool into its first conv."""
     if model in ("scrfd", "retinaface"):
         return ScrfdDetector(dtype=dtype, stem_pool=stem_pool)
+    if model == "lite":
+        return LiteDetector(dtype=dtype, stem_pool=stem_pool)
     raise NotImplementedError(
-        f"detector {model!r} is not ported yet (a later port slice); only 'scrfd' is"
+        f"detector {model!r} is not ported yet (the mtcnn and hog families are still to "
+        "port, ROADMAP Queue A item 10); 'scrfd' and 'lite' are"
     )

@@ -147,15 +147,19 @@ def test_entry_point_device_and_unported_options(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FusedPipeline(cfg, **COMMON)  # no card and no explicit CPU: never a silent fallback
-    for option in (dict(keep_top_k=3), dict(warp_tap_mode="uw16"), dict(detector_arch="lite"),
-                   dict(use_s2d_early=True)):
-        with pytest.raises(NotImplementedError, match="slice"):
-            FusedPipeline(cfg, device="cpu", **{**COMMON, **option})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FusedPipeline(cfg, device="cpu", use_s2d_early=True, **COMMON)
     with pytest.raises(ValueError, match="scrfd family"):
         FusedPipeline(cfg, device="cpu", use_int8_detector=True, detector_arch="lite", **COMMON)
+    with pytest.raises(ValueError, match="warp_tap_mode"):
+        FusedPipeline(cfg, device="cpu", warp_tap_mode="uw8", **COMMON)
     for option in (dict(use_int8_tail=True), dict(use_int8_detector=True),
-                   dict(warp_fractional=False), dict(use_fused_backbone=True)):  # ported: these construct
+                   dict(warp_fractional=False), dict(use_fused_backbone=True),
+                   dict(keep_top_k=3), dict(warp_tap_mode="uw16"), dict(warp_tap_mode="uw"),
+                   dict(warp_tap_mode="int8"), dict(detector_arch="lite")):  # ported: these construct
         FusedPipeline(cfg, device="cpu", **{**COMMON, **option})
+    multi = FusedPipeline(cfg, device="cpu", keep_top_k=3, detector_arch="lite", **COMMON)
+    assert (multi.keep_top_k, multi.nms_threshold, multi.detector_arch) == (3, 0.4, "lite")
     fused = FusedPipeline(cfg, device="cpu", use_fused_backbone=True, **COMMON)
     assert fused.use_fused_backbone  # never switched off silently, whatever the device
     fused.init_variables(0)

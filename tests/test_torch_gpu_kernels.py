@@ -159,6 +159,67 @@ def test_warp_kernel_matches_plain(dev):
     assert (got == 0).any() and torch.isfinite(got).all()
 
 
+@pytest.mark.parametrize("shared_frames", [False, True])
+def test_crop_frac_mxu_kernel_matches_plain(dev, shared_frames):
+    """The rank-1 ("mxu") taps of the fractional crop, at the int8-tap
+    path's shapes; r = 1 faces copy their window exactly."""
+    H, W, C, window, out, N = 640, 640, 3, 128, (192, 192), 96
+    level, strip0s, r, off_y, x0f, _ = _faces(N, H, W, window, out, dev, seed=3)
+    strip0 = strip0s[level.long(), torch.arange(N, device=dev)]
+    B = 8 if shared_frames else N
+    frames = torch.randint(0, 256, (B, H, W * C), device=dev).to(torch.bfloat16)
+    fidx = torch.arange(N, device=dev) % B
+    before = (wk.crop_frac_mxu.launches, wk.crop_frac.launches)
+    got = wk.crop_frac_mxu(frames, strip0, level, r, off_y, x0f, window, C, frame_idx=fidx)
+    torch.cuda.synchronize()
+    assert (wk.crop_frac_mxu.launches, wk.crop_frac.launches) == (before[0] + 1, before[1])
+    want = wk.crop_frac_plain(frames, strip0.int(), level.int(), torch.round(r * 65536).int(),
+                              off_y.int(), x0f.int(), window, C, fidx.int(), construction="mxu")
+    assert torch.equal(got, want)
+    exact = r == 1.0
+    assert exact.any()
+    legacy = wk.crop_frac(frames, strip0, level, r, off_y, x0f, window, C, frame_idx=fidx)
+    assert torch.equal(got[exact], legacy[exact])
+
+
+@pytest.mark.parametrize("mode", ["uw", "uw16", "int8"])
+@pytest.mark.parametrize("pixels", ["integer", "bf16"])
+def test_tap_mode_warp_kernels_match_plain(dev, mode, pixels):
+    """The rank-1 ("uw"/"uw16") and int8 warp kernels at the paths' shapes
+    (160² crops to 224², 128² crops to 192²): bit for bit, also on a
+    non-integer bf16 crop (the int8 kernel quantizes it half to even)."""
+    N, S, out = (96, 160, (224, 224)) if mode != "int8" else (64, 128, (192, 192))
+    g = torch.Generator(device="cpu").manual_seed(4)
+    crop = torch.rand((N, S, S, 3), generator=g) * 255
+    crop = (crop.round() if pixels == "integer" else crop.to(torch.bfloat16).float()).to(dev)
+    ang = torch.rand(N, generator=g) * 0.8 - 0.4
+    sc = torch.rand(N, generator=g) * 0.6 + 0.4
+    A = torch.stack([torch.stack([sc * ang.cos(), -sc * ang.sin(), torch.rand(N, generator=g) * 20 - 5], -1),
+                     torch.stack([sc * ang.sin(), sc * ang.cos(), torch.rand(N, generator=g) * 20 - 5], -1)],
+                    1).to(dev)
+    kernel = wk.WARP_KERNELS[mode]
+    others = [k for name, k in wk.WARP_KERNELS.items() if name != mode]
+    before = kernel.launches, [k.launches for k in others]
+    got = kernel(crop, A, out, inverse=True)
+    torch.cuda.synchronize()
+    assert (kernel.launches, [k.launches for k in others]) == (before[0] + 1, before[1])
+    plain = wk.warp_affine_int8_plain if mode == "int8" else wk.warp_affine_uw_plain
+    want = plain(crop.to(torch.bfloat16), A.reshape(N, 6), out)
+    assert torch.equal(got, want)
+    assert (got == 0).any() and torch.isfinite(got).all()
+    if mode == "uw16":
+        assert torch.equal(got, wk.warp_affine_uw(crop, A, out, inverse=True))
+
+
+def test_int8_warp_kernel_border_is_exact_zero(dev):
+    img = torch.full((1, 48, 48, 3), 200.0, device=dev)
+    A_inv = torch.tensor([[[1.0, 0.0, 30.0], [0.0, 1.0, 0.0]]], device=dev)  # dst→src
+    got = wk.warp_affine_int8(img, A_inv, (48, 48), inverse=True)
+    assert got[0, :, -5:].max().item() == 0.0
+    want = wk.warp_affine_int8_plain(img.to(torch.bfloat16), A_inv.reshape(1, 6), (48, 48))
+    assert torch.equal(got, want)
+
+
 def _randomize_bn(module, seed):
     """BatchNorm parameters and statistics away from the identity."""
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -254,7 +315,16 @@ def test_kernels_reject_wrong_inputs(dev):
         wk.crop_frac(torch.zeros((1, 128, 384), device=dev, dtype=torch.bfloat16), z, z,
                      torch.ones(1), z, z, 128, 3)  # r on the CPU
     with pytest.raises(TypeError):
+        wk.crop_frac_mxu(torch.zeros((1, 128, 384), device=dev), z, z, torch.ones(1, device=dev),
+                         z, z, 128, 3)
+    with pytest.raises(TypeError):
         wk.crop_pool(torch.zeros((1, 128, 384), device=dev), z, z, z, 128, 3)
+    with pytest.raises(ValueError):
+        wk.warp_affine_int8(torch.zeros((2, 8, 8, 3), device=dev), torch.zeros((1, 2, 3), device=dev),
+                            (4, 4))
+    with pytest.raises(ValueError):
+        wk.warp_affine_uw16(torch.zeros((1, 8, 8, 3), device=dev), torch.zeros((1, 2, 3)), (4, 4),
+                            inverse=True)  # matrices on the CPU
     q = torch.zeros((8, 8), dtype=torch.int8, device=dev)
     one = torch.ones(1, device=dev)
     with pytest.raises(TypeError):

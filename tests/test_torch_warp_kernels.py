@@ -153,11 +153,21 @@ def test_wrappers_validate_and_count_only_launches():
         tk.crop_frac(frames, z, z, torch.ones(1), z, z, 16, 3)
     with pytest.raises(ValueError):
         tk.warp_affine_legacy(torch.zeros((2, 8, 8, 3)), torch.zeros((1, 2, 3)), (4, 4))
-    before = (tk.crop_frac.launches, tk.warp_affine_legacy.launches)
+    with pytest.raises(TypeError):
+        tk.crop_frac_mxu(frames, z, z, torch.ones(1), z, z, 16, 3)
+    counted = (tk.crop_frac, tk.crop_frac_mxu, *tk.WARP_KERNELS.values())
+    before = [k.launches for k in counted]
     tk.crop_frac(frames.to(torch.bfloat16), z, z, torch.ones(1), z, z, 16, 3)
-    tk.warp_affine_legacy(torch.zeros((1, 8, 8, 3)), torch.eye(2, 3)[None], (4, 4))
+    tk.crop_frac_mxu(frames.to(torch.bfloat16), z, z, torch.ones(1), z, z, 16, 3)
+    for warp in tk.WARP_KERNELS.values():
+        warp(torch.zeros((1, 8, 8, 3)), torch.eye(2, 3)[None], (4, 4))
     # The CPU runs the plain versions: no kernel launched, nothing counted.
-    assert (tk.crop_frac.launches, tk.warp_affine_legacy.launches) == before
-    with pytest.raises(NotImplementedError, match="tap construction"):
+    assert [k.launches for k in counted] == before
+    # Every tap construction is ported now; an unknown one is an error.
+    for mode in ("uw16", "int8"):
+        out = twarp.warp_affine_windowed(torch.zeros((1, 64, 64, 3)), torch.eye(2, 3)[None],
+                                         (8, 8), window=32, fractional=True, tap_construction=mode)
+        assert out.shape == (1, 8, 8, 3)
+    with pytest.raises(ValueError, match="tap construction"):
         twarp.warp_affine_windowed(torch.zeros((1, 64, 64, 3)), torch.eye(2, 3)[None], (8, 8),
-                                   window=32, fractional=True, tap_construction="uw16")
+                                   window=32, fractional=True, tap_construction="uw8")
