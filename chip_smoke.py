@@ -9,7 +9,12 @@
    the serving paths' shapes and times kernel, plain version and, where one
    PyTorch call computes the same function, that call (``F.grid_sample``,
    ``torch._int_mm``: yardsticks the port never calls) with CUDA events:
-   the median and range of several repeats. The two int8 kernels must agree
+   the median and range of several repeats of a wrapper call, which
+   include the host's enqueue time when the host is slower than the card.
+   Beside them each kernel's and each library call's own device time from
+   ``torch.profiler`` over the same launches (``device_ms``,
+   ``library_device_ms``): the numbers to compare a kernel with its
+   library call and its bound. The two int8 kernels must agree
    bit for bit, the seven crop and warp kernels (the fractional crop with
    legacy and rank-1 "mxu" taps, the pooled crop, the warp with legacy,
    "uw", "uw16" and int8 taps) within one bf16 step (they agree bit for
@@ -166,8 +171,43 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, repeats: int = 7) -> dict:
     return {"median": statistics.median(samples), "min": min(samples), "max": max(samples)}
 
 
+def device_ms(fn, own: str = "", iters: int = 20, warmup: int = 3) -> dict:
+    """Device time per call: ``torch.profiler`` over ``iters`` calls, each
+    device kernel summed by name over the call count. Unlike ``time_ms``
+    this leaves out the host's enqueue time. Returns ``ms``, the time per
+    call of the kernels whose name holds ``own`` (every kernel by default),
+    ``call_ms`` and ``launches``, all device time and device launches per
+    call, and the per-kernel split."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):  # now and then a profile comes back without its device records
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = {ev.key: {"ms": ev.self_device_time_total / 1e3 / iters,
+                            "launches": ev.count / iters}
+                   for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and ev.self_device_time_total > 0}
+        if kernels:
+            break
+    mine = [k["ms"] for name, k in kernels.items() if own in name]
+    if not mine:
+        fail(f"the profiler saw no device kernel named like {own!r}: {sorted(kernels)}")
+    return {"ms": sum(mine), "call_ms": sum(k["ms"] for k in kernels.values()),
+            "launches": sum(k["launches"] for k in kernels.values()), "kernels": kernels}
+
+
 def fmt(t: dict) -> str:
     return f"{t['median']:.4f} [{t['min']:.4f}, {t['max']:.4f}]"
+
+
+def fmt_dev(d: dict) -> str:
+    return (f"{d['ms']:.4f} (the call: {d['call_ms']:.4f} in {d['launches']:g} device "
+            f"launches)")
 
 
 @contextlib.contextmanager
@@ -358,16 +398,21 @@ def check_int8_gemm(ik, dev) -> list:
         torch.cuda.synchronize()
         err = (got - ik.int8_gemm_plain(xq, wq, sx, sw, b)).abs().max().item()
         t = time_ms(lambda: ik.int8_gemm(xq, wq, sx, sw, b))
+        d = device_ms(lambda: ik.int8_gemm(xq, wq, sx, sw, b), "int8_gemm")
         plain = time_ms(lambda: ik.int8_gemm_plain(xq, wq, sx, sw, b), iters=3, repeats=3)
         lib = time_ms(lambda: torch._int_mm(xq, wq))  # the s32 product alone, no epilogue
+        lib_d = device_ms(lambda: torch._int_mm(xq, wq))
         b_ms, by = bound(M * K + K * N + 4 * M * N + 4 * (1 + 2 * N), 2.0 * M * K * N)
         print(f"int8_gemm ({M}, {K}) x ({K}, {N}): max_abs {err} (tol {INT8_TOL}) kernel_ms {fmt(t)} "
-              f"plain_ms {fmt(plain)} _int_mm_ms {fmt(lib)} bound_us {b_ms * 1e3:.2f} ({by})")
+              f"device_ms {fmt_dev(d)} plain_ms {fmt(plain)} _int_mm_ms {fmt(lib)} device_ms "
+              f"{fmt_dev(lib_d)} bound_us {b_ms * 1e3:.2f} ({by})")
         if not err <= INT8_TOL:
             fail(f"int8_gemm disagrees with its plain version at {(M, K, N)}: {err}")
         rows.append({"shape": f"({M}, {K}) x ({K}, {N})", "max_abs_err": err, "ms": t["median"],
-                     "ms_range": [t["min"], t["max"]], "plain_ms": plain["median"],
-                     "bound_ms": b_ms, "bound_by": by, "library_ms": lib["median"]})
+                     "ms_range": [t["min"], t["max"]], "device_ms": d["ms"],
+                     "device_kernels": d["kernels"], "plain_ms": plain["median"],
+                     "bound_ms": b_ms, "bound_by": by, "library_ms": lib["median"],
+                     "library_device_ms": lib_d["ms"]})
     return rows
 
 
@@ -391,6 +436,7 @@ def check_int8_conv(ik, dev, batch: int = 128) -> list:
         torch.cuda.synchronize()
         err = (got - ik.int8_conv_plain(xq, kq, sx, sw, b, stride)).abs().max().item()
         t = time_ms(lambda: ik.int8_conv(xq, kq, sx, sw, b, stride))
+        d = device_ms(lambda: ik.int8_conv(xq, kq, sx, sw, b, stride), "int8_conv")
         plain = time_ms(lambda: ik.int8_conv_plain(xq, kq, sx, sw, b, stride), iters=2, repeats=3)
         lo, hi = same_pads(H, k, stride)
         x16 = F.pad(xq.permute(0, 3, 1, 2).to(torch.bfloat16), (lo, hi, lo, hi))
@@ -402,12 +448,14 @@ def check_int8_conv(ik, dev, batch: int = 128) -> list:
         b_ms, by = bound(batch * H * H * cin + k * k * cin * cout + 4 * batch * Ho * Ho * cout
                          + 4 * (1 + 2 * cout), 2.0 * batch * taps * taps * cin * cout)
         print(f"int8_conv {name}, B = {batch}: max_abs {err} (tol {INT8_TOL}) kernel_ms {fmt(t)} "
-              f"plain_ms {fmt(plain)} bound_us {b_ms * 1e3:.2f} ({by}); context, a different "
-              f"function: bf16 cuDNN convolution of this shape {fmt(cudnn)} ms")
+              f"device_ms {fmt_dev(d)} plain_ms {fmt(plain)} bound_us {b_ms * 1e3:.2f} ({by}); "
+              f"context, a different function: bf16 cuDNN convolution of this shape "
+              f"{fmt(cudnn)} ms")
         if not err <= INT8_TOL:
             fail(f"int8_conv disagrees with its plain version at {name}: {err}")
         rows.append({"shape": f"{name}, B = {batch}", "max_abs_err": err, "ms": t["median"],
-                     "ms_range": [t["min"], t["max"]], "plain_ms": plain["median"],
+                     "ms_range": [t["min"], t["max"]], "device_ms": d["ms"],
+                     "device_kernels": d["kernels"], "plain_ms": plain["median"],
                      "bound_ms": b_ms, "bound_by": by, "library_ms": None,
                      "context_bf16_cudnn_ms": cudnn["median"]})
     return rows
@@ -434,16 +482,19 @@ def check_crop_pool(wk, frames_flat, A_inv, dev) -> dict:
     plain_args = (frames_flat, y0_l0.int(), x0.int(), level.int(), POOL_WINDOW, C, idx.int())
     err = (got.float() - wk.crop_pool_plain(*plain_args).float()).abs().max().item()
     t = time_ms(lambda: wk.crop_pool(*args))
+    d = device_ms(lambda: wk.crop_pool(*args), "crop_pool")
     plain = time_ms(lambda: wk.crop_pool_plain(*plain_args), iters=3, repeats=3)
     side = torch.full_like(level.long(), POOL_WINDOW) << level.long()
     nbytes = int((side * side).sum().item()) * C * 2 + N * POOL_WINDOW ** 2 * C * 2 + N * 16
     b_ms, by = bound(nbytes)
-    print(f"crop_pool: max_abs {err} (tol {POOL_TOL}) kernel_ms {fmt(t)} plain_ms {fmt(plain)} "
-          f"bound_us {b_ms * 1e3:.2f} ({nbytes} bytes); no single PyTorch call computes it")
+    print(f"crop_pool: max_abs {err} (tol {POOL_TOL}) kernel_ms {fmt(t)} device_ms {fmt_dev(d)} "
+          f"plain_ms {fmt(plain)} bound_us {b_ms * 1e3:.2f} ({nbytes} bytes); no single PyTorch "
+          f"call computes it")
     if not err <= POOL_TOL:
         fail(f"crop_pool disagrees with its plain version: {err}")
     return {"shape": f"{N} faces, {H}² frames, window {POOL_WINDOW}, levels {hist}",
             "max_abs_err": err, "ms": t["median"], "ms_range": [t["min"], t["max"]],
+            "device_ms": d["ms"], "device_kernels": d["kernels"],
             "plain_ms": plain["median"], "bound_ms": b_ms, "bound_by": by, "library_ms": None}
 
 
@@ -483,13 +534,14 @@ def block_bound(bp, B: int, h: int, weights):
     return bound(nbytes, 2.0 * macs, BF16_OPS_PER_S)
 
 
-def fused_row(name, shape, agree, t, plain, b_ms, by, context) -> dict:
+def fused_row(name, shape, agree, t, d, plain, b_ms, by, context) -> dict:
     print(f"{name} {shape}: max_abs {agree['max_abs_err']:.6f} (limit two bf16 steps), "
-          f"{agree['share_differing']:.2e} of the elements differ; kernel_ms {fmt(t)} plain_ms "
-          f"{fmt(plain)} bound_us {b_ms * 1e3:.2f} ({by}); no single PyTorch call computes it; "
-          f"context, a different function (BatchNorm not folded): the port's eager module on "
-          f"this input {fmt(context)} ms")
+          f"{agree['share_differing']:.2e} of the elements differ; kernel_ms {fmt(t)} device_ms "
+          f"{fmt_dev(d)} plain_ms {fmt(plain)} bound_us {b_ms * 1e3:.2f} ({by}); no single "
+          f"PyTorch call computes it; context, a different function (BatchNorm not folded): the "
+          f"port's eager module on this input {fmt(context)} ms")
     return {"shape": shape, **agree, "ms": t["median"], "ms_range": [t["min"], t["max"]],
+            "device_ms": d["ms"], "device_kernels": d["kernels"],
             "plain_ms": plain["median"], "bound_ms": b_ms, "bound_by": by, "library_ms": None,
             "context_eager_module_ms": context["median"]}
 
@@ -515,6 +567,7 @@ def check_fused(fs, fm, dev):
     torch.cuda.synchronize()
     agree = fused_agreement("run_stem", got, fs.run_stem_plain(x, sw))
     t = time_ms(lambda: fs.run_stem(x, sw))
+    d = device_ms(lambda: fs.run_stem(x, sw), "fused_stem")
     plain = time_ms(lambda: fs.run_stem_plain(x, sw), iters=3, repeats=3)
     x_nchw = x.permute(0, 3, 1, 2)
     with torch.inference_mode():
@@ -525,7 +578,7 @@ def check_fused(fs, fm, dev):
     b_ms, by = bound(x.numel() * 2 + B * ho * ho * c0 * 2 + sw[0].numel() * 2 + c0 * 4,
                      2.0 * B * taps * taps * 3 * c0, BF16_OPS_PER_S)
     stem_row = fused_row("run_stem", f"({B}, {FACE[0]}, {FACE[1]}, 3) -> {c0} channels", agree, t,
-                         plain, b_ms, by, eager)
+                         d, plain, b_ms, by, eager)
     del x, x_nchw, faces, got
 
     def block_case(label, idx, h, B):
@@ -545,6 +598,7 @@ def check_fused(fs, fm, dev):
         torch.cuda.synchronize()
         agree = fused_agreement(label, got, run_plain())
         t = time_ms(run)
+        d = device_ms(run, "fused_", iters=5)
         plain = time_ms(run_plain, iters=2, repeats=3)
         x_nchw = x.permute(0, 3, 1, 2)
         with torch.inference_mode():
@@ -552,7 +606,7 @@ def check_fused(fs, fm, dev):
         b_ms, by = block_bound(bp, B, h, weights)
         shape = (f"B4 block {idx}, B = {B}, {h}² -> {h // bp.stride}², k{bp.kernel} "
                  f"{bp.cin} -> {bp.cexp} -> {bp.cout}")
-        return fused_row(label, shape, agree, t, plain, b_ms, by, eager)
+        return fused_row(label, shape, agree, t, d, plain, b_ms, by, eager)
 
     block_rows = [block_case("run_block", *case) for case in FUSED_BLOCKS]
     proto_rows = [block_case("fused_mbconv", *case) for case in PROTO_BLOCKS]
@@ -583,21 +637,51 @@ def check_warp(name: str, fn, plain_fn, crop, A_win, out_size) -> dict:
     torch.cuda.synchronize()
     err = (got - plain_fn(crop, coeffs, out_size)).abs().max().item()
     t = time_ms(lambda: fn(crop, A_win, out_size, inverse=True))
+    d = device_ms(lambda: fn(crop, A_win, out_size, inverse=True), "warp_")
     plain = time_ms(lambda: plain_fn(crop, coeffs, out_size), iters=5, repeats=5)
     grid, crop_nchw = warp_grid(coeffs, out_size, S), crop.permute(0, 3, 1, 2).float().contiguous()
-    lib = time_ms(lambda: F.grid_sample(crop_nchw, grid, mode="bilinear", padding_mode="zeros",
-                                        align_corners=False))
+
+    def lib_call():
+        return F.grid_sample(crop_nchw, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=False)
+
+    lib, lib_d = time_ms(lib_call), device_ms(lib_call)
     nbytes = (warp_footprint_bytes(coeffs, S, S, C, out_size)
               + N * out_size[0] * out_size[1] * C * 4 + N * 6 * 4)
     print(f"{name} ({N}, {S}², {C}) -> {out_size[0]}²: max_abs {err} (tol {WARP_TOL}) kernel_ms "
-          f"{fmt(t)} plain_ms {fmt(plain)} grid_sample_ms {fmt(lib)} "
-          f"bound_us {nbytes / HBM_BYTES_PER_S * 1e6:.2f} ({nbytes} bytes)")
+          f"{fmt(t)} device_ms {fmt_dev(d)} plain_ms {fmt(plain)} grid_sample_ms {fmt(lib)} "
+          f"device_ms {fmt_dev(lib_d)} bound_us {nbytes / HBM_BYTES_PER_S * 1e6:.2f} "
+          f"({nbytes} bytes)")
     if not err <= WARP_TOL:
         fail(f"{name} disagrees with its plain version: {err}")
     return {"out": got, "max_abs_err": err, "ms": t["median"], "ms_range": [t["min"], t["max"]],
+            "device_ms": d["ms"], "device_kernels": d["kernels"],
             "plain_ms": plain["median"], "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-            "bound_by": "bytes", "library_ms": lib["median"],
+            "bound_by": "bytes", "library_ms": lib["median"], "library_device_ms": lib_d["ms"],
             "shape": f"{N} faces, {S}² crops -> {out_size[0]}²"}
+
+
+def check_crop(name: str, fn, plain_fn, args, plain_args, lib_call, nbytes: int):
+    """A fractional crop kernel vs its plain version, timed next to
+    ``F.grid_sample`` computing the same bilinear resample (``lib_call``)
+    and to its bytes bound. Returns the kernel's output and the row."""
+    got = fn(*args)
+    torch.cuda.synchronize()
+    err = (got.float() - plain_fn(*plain_args).float()).abs().max().item()
+    t = time_ms(lambda: fn(*args))
+    d = device_ms(lambda: fn(*args), "crop_frac")
+    plain = time_ms(lambda: plain_fn(*plain_args), iters=5, repeats=5)
+    lib, lib_d = time_ms(lib_call), device_ms(lib_call)
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"{name}: max_abs {err} (tol {CROP_TOL}) kernel_ms {fmt(t)} device_ms {fmt_dev(d)} "
+          f"plain_ms {fmt(plain)} grid_sample_ms {fmt(lib)} device_ms {fmt_dev(lib_d)} "
+          f"bound_us {b_ms * 1e3:.2f} ({nbytes} bytes; the rank-1 taps have the legacy support)")
+    if not err <= CROP_TOL:
+        fail(f"{name} disagrees with its plain version: {err}")
+    return got, {"max_abs_err": err, "ms": t["median"], "ms_range": [t["min"], t["max"]],
+                 "device_ms": d["ms"], "device_kernels": d["kernels"], "plain_ms": plain["median"],
+                 "bound_ms": b_ms, "bound_by": "bytes", "library_ms": lib["median"],
+                 "library_device_ms": lib_d["ms"]}
 
 
 def check_rank1_warps(wk, frames_flat, dev):
@@ -798,12 +882,11 @@ def main() -> None:
     crop_args = (frames_flat, strip0, level, r, off_y, x0f, WINDOW, C)
     plain_args = (frames_flat, strip0.int(), level.int(), torch.round(r * 65536).int(),
                   off_y.int(), x0f.int(), WINDOW, C, torch.arange(N, device=dev).int())
-    crop_k = wk.crop_frac(*crop_args)
-    torch.cuda.synchronize()
-    crop_p = wk.crop_frac_plain(*plain_args)
-    crop_err = (crop_k.float() - crop_p.float()).abs().max().item()
-    crop_t = time_ms(lambda: wk.crop_frac(*crop_args))
-    crop_plain_t = time_ms(lambda: wk.crop_frac_plain(*plain_args), iters=5, repeats=5)
+    # The geometry's own types go to the wrappers (float32 r, off_y, x0f;
+    # frame_idx None); the plain version takes the int32 forms.
+    crop_args = (frames_flat, strip0, level, r, off_y, x0f, WINDOW, C)
+    plain_args = (frames_flat, strip0.int(), level.int(), torch.round(r * 65536).int(),
+                  off_y.int(), x0f.int(), WINDOW, C, torch.arange(N, device=dev).int())
     # Yardstick: one grid_sample computing the same bilinear resample.
     i = torch.arange(WINDOW, dtype=torch.float32, device=dev)
     gy = (strip0.float() + off_y)[:, None] + (i + 0.5) * r[:, None] - 0.5
@@ -811,39 +894,26 @@ def main() -> None:
     grid = torch.stack(torch.broadcast_tensors(
         ((2 * gx + 1) / W - 1)[:, None, :], ((2 * gy + 1) / H - 1)[:, :, None]), -1)
     frames_nchw = frames.permute(0, 3, 1, 2).float().contiguous()
-    crop_lib_t = time_ms(lambda: F.grid_sample(frames_nchw, grid, mode="bilinear",
-                                               padding_mode="zeros", align_corners=False))
+
+    def crop_lib():
+        return F.grid_sample(frames_nchw, grid, mode="bilinear", padding_mode="zeros",
+                             align_corners=False)
+
     crop_bytes = (crop_footprint_bytes(strip0, level, r, off_y, x0f, H, W, C)
                   + N * WINDOW * WINDOW * C * 2 + N * 6 * 4)
-    print(f"crop_frac: max_abs {crop_err} (tol {CROP_TOL}) kernel_ms {fmt(crop_t)} "
-          f"plain_ms {fmt(crop_plain_t)} grid_sample_ms {fmt(crop_lib_t)} "
-          f"bound_us {crop_bytes / HBM_BYTES_PER_S * 1e6:.2f} ({crop_bytes} bytes)")
-    if not crop_err <= CROP_TOL:
-        fail(f"crop_frac disagrees with its plain version: {crop_err}")
-
+    crop_k, crop_row = check_crop("crop_frac", wk.crop_frac, wk.crop_frac_plain, crop_args,
+                                  plain_args, crop_lib, crop_bytes)
     legacy_row = check_warp("warp_affine_legacy", wk.warp_affine_legacy,
                             wk.warp_affine_legacy_plain, crop_k.reshape(N, WINDOW, WINDOW, C),
                             A_win, FACE)
     legacy_row.pop("out")
-    del crop_p
 
     # The rank-1 ("mxu") crop and the int8 warp at path E's shapes, the
     # rank-1 warps at path F's.
-    mxu_k = wk.crop_frac_mxu(*crop_args)
-    torch.cuda.synchronize()
-    mxu_err = (mxu_k.float() - wk.crop_frac_plain(*plain_args, construction="mxu").float()
-               ).abs().max().item()
-    mxu_t = time_ms(lambda: wk.crop_frac_mxu(*crop_args))
-    mxu_plain_t = time_ms(lambda: wk.crop_frac_plain(*plain_args, construction="mxu"),
-                          iters=5, repeats=5)
-    mxu_lib_t = time_ms(lambda: F.grid_sample(frames_nchw, grid, mode="bilinear",
-                                              padding_mode="zeros", align_corners=False))
-    print(f"crop_frac_mxu: max_abs {mxu_err} (tol {CROP_TOL}) kernel_ms {fmt(mxu_t)} "
-          f"plain_ms {fmt(mxu_plain_t)} grid_sample_ms {fmt(mxu_lib_t)} "
-          f"bound_us {crop_bytes / HBM_BYTES_PER_S * 1e6:.2f} ({crop_bytes} bytes, the legacy "
-          f"taps' footprint: the rank-1 taps have the same support)")
-    if not mxu_err <= CROP_TOL:
-        fail(f"crop_frac_mxu disagrees with its plain version: {mxu_err}")
+    mxu_k, mxu_row = check_crop(
+        "crop_frac_mxu", wk.crop_frac_mxu,
+        lambda *a: wk.crop_frac_plain(*a, construction="mxu"), crop_args, plain_args, crop_lib,
+        crop_bytes)
     r1 = r == 1.0
     if not torch.equal(mxu_k[r1], crop_k[r1]):
         fail("crop_frac_mxu is not an exact copy at r = 1")
@@ -972,7 +1042,8 @@ def main() -> None:
         out = {"name": name, "route": "cuda", "source": f"deepfake_vit_tpu_torch/csrc/{source}",
                "replaces": replaces, "launches": launches,
                **{k: m[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")}}
+                                    "library_ms", "device_ms")},
+               "library_device_ms": m.get("library_device_ms")}
         if construction is not None:  # the TPU kernel's construction this one replaces
             out["construction"] = construction
         if shapes is not None:
@@ -980,18 +1051,11 @@ def main() -> None:
             out["shape"], out["shapes"] = m["shape"], shapes
         return out
 
-    def warp_m(err, t, plain, nbytes, lib):
-        return {"max_abs_err": err, "ms": t["median"], "plain_ms": plain["median"],
-                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-                "library_ms": lib["median"]}
-
     report = {"kernels": [
         row("crop_frac", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:564",
-            a_launches["crop_frac"], warp_m(crop_err, crop_t, crop_plain_t, crop_bytes, crop_lib_t),
-            construction="legacy"),
+            a_launches["crop_frac"], crop_row, construction="legacy"),
         row("crop_frac_mxu", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:564",
-            e_launches["crop_frac_mxu"],
-            warp_m(mxu_err, mxu_t, mxu_plain_t, crop_bytes, mxu_lib_t), construction="mxu"),
+            e_launches["crop_frac_mxu"], mxu_row, construction="mxu"),
         row("warp_affine_legacy", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:101",
             a_launches["warp_affine_legacy"], legacy_row, construction="legacy"),
         row("warp_affine_uw", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:101",
@@ -1018,9 +1082,7 @@ def main() -> None:
     headline = paths["A int8 headline"]["profile"][0]
     extra = {"card": card, "kind": kind, "faces_per_s": headline["faces_per_s"],
              "kernel_faces": N, "crop_buckets": hist, "r_eq_1_faces": n_r1,
-             "timings_ms": {"crop_frac": crop_t, "crop_frac_plain": crop_plain_t,
-                            "crop_grid_sample": crop_lib_t, "crop_frac_mxu": mxu_t,
-                            "crop_frac_mxu_plain": mxu_plain_t},
+             "crop_rows": {"crop_frac": crop_row, "crop_frac_mxu": mxu_row},
              "warp_rows": {"warp_affine_legacy": legacy_row, "warp_affine_int8": int8_row,
                            **rank1_rows},
              "bound_bytes": {"crop_frac": crop_bytes},
