@@ -14,8 +14,12 @@
    Beside them each kernel's and each library call's own device time from
    ``torch.profiler`` over the same launches (``device_ms``,
    ``library_device_ms``): the numbers to compare a kernel with its
-   library call and its bound. The two int8 kernels must agree
-   bit for bit, the seven crop and warp kernels (the fractional crop with
+   library call and its bound. The crop and GEMM wrappers must launch
+   exactly one device kernel a call. The GEMM gets K-major weights, as the
+   int8 tail keeps them; ``torch._int_mm`` is timed on those and on
+   row-major weights and the faster stands as the library call; a fill of
+   the f32 output is printed as the store floor. The two int8 kernels must
+   agree bit for bit, the seven crop and warp kernels (the fractional crop with
    legacy and rank-1 "mxu" taps, the pooled crop, the warp with legacy,
    "uw", "uw16" and int8 taps) within one bf16 step (they agree bit for
    bit), "uw" and "uw16" with each other bit for bit, the fused stem,
@@ -129,15 +133,15 @@ CONV_SHAPES = (  # (name, H, Cin, Cout, k, stride)
 # Kernel-name fragments → class for the profile, first match wins.
 KERNEL_CLASSES = (
     ("host <-> device copy", ("memcpy",)),
-    ("crop_frac (port kernel)", ("crop_frac_kernel<0>",)),
-    ("crop_frac_mxu (port kernel)", ("crop_frac_kernel<1>",)),
+    ("crop_frac (port kernel)", ("crop_frac_band_kernel<0>",)),
+    ("crop_frac_mxu (port kernel)", ("crop_frac_band_kernel<1>",)),
     ("crop_pool (port kernel)", ("crop_pool_kernel",)),
     ("warp_affine_legacy (port kernel)", ("warp_bf16_kernel<0>",)),
     ("warp_affine_uw / uw16 (port kernel)", ("warp_bf16_kernel<1>",)),
     ("warp_affine_int8 (port kernel)", ("warp_int8_kernel",)),
     ("crop / warp (port kernel, construction not in the name)",
-     ("crop_frac_kernel", "warp_bf16_kernel")),
-    ("int8_gemm (port kernel)", ("int8_gemm_kernel",)),
+     ("crop_frac_band_kernel", "warp_bf16_kernel")),
+    ("int8_gemm (port kernel)", ("int8_gemm_mma_kernel",)),
     ("int8_conv (port kernel)", ("int8_conv_kernel",)),
     ("fused_stem (port kernel)", ("fused_stem_kernel",)),
     ("fused_block (port kernel)", ("fused_block_pass_kernel", "fused_se_kernel")),
@@ -182,7 +186,7 @@ def device_ms(fn, own: str = "", iters: int = 20, warmup: int = 3) -> dict:
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):  # now and then a profile comes back without its device records
+    for _ in range(5):  # now and then a profile comes back without its device records
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
                 fn()
@@ -194,6 +198,13 @@ def device_ms(fn, own: str = "", iters: int = 20, warmup: int = 3) -> dict:
                    and ev.self_device_time_total > 0}
         if kernels:
             break
+        time.sleep(0.2)
+    else:
+        t = time_ms(fn, iters, warmup=0, repeats=3)
+        print(f"device_ms: the profiler saw no device records in five tries; {t['median']:.4f} "
+              f"ms from CUDA events instead (host enqueue included)")
+        return {"ms": t["median"], "call_ms": t["median"], "launches": float("nan"),
+                "kernels": {}, "source": "CUDA events"}
     mine = [k["ms"] for name, k in kernels.items() if own in name]
     if not mine:
         fail(f"the profiler saw no device kernel named like {own!r}: {sorted(kernels)}")
@@ -384,35 +395,65 @@ def bound(nbytes: float, ops: float = 0.0, ops_per_s: float = INT8_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def one_launch(name: str, d: dict, kernel: str) -> None:
+    """The wrapper call launched exactly one device kernel, its own."""
+    if "source" in d:
+        print(f"{name}: no device profile to count launches in ({d['source']})")
+        return
+    if d["launches"] != 1 or not all(kernel in k for k in d["kernels"]):
+        fail(f"{name}: a call launched {d['launches']} device kernels, expected one "
+             f"{kernel}: {sorted(d['kernels'])}")
+
+
 def check_int8_gemm(ik, dev) -> list:
-    """int8_gemm vs its plain version and torch._int_mm at the tail's shapes."""
+    """int8_gemm vs its plain version and torch._int_mm at the tail's shapes.
+    The weights are K-major, as the tail runner keeps them; _int_mm is timed
+    on the same tensors and on row-major weights, and the faster stands as
+    the library call."""
     rows = []
     for M, K, N in GEMM_SHAPES:
         g = torch.Generator(device="cpu").manual_seed(M + K + N)
         xq = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8).to(dev)
         wq = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8).to(dev)
+        wk_major = wq.t().contiguous().t()
         sx = torch.tensor([0.0437], device=dev)
         sw = (torch.rand(N, generator=g) * 0.01 + 0.001).to(dev)
         b = torch.randn(N, generator=g).to(dev)
-        got = ik.int8_gemm(xq, wq, sx, sw, b)
+        got = ik.int8_gemm(xq, wk_major, sx, sw, b)
         torch.cuda.synchronize()
         err = (got - ik.int8_gemm_plain(xq, wq, sx, sw, b)).abs().max().item()
-        t = time_ms(lambda: ik.int8_gemm(xq, wq, sx, sw, b))
-        d = device_ms(lambda: ik.int8_gemm(xq, wq, sx, sw, b), "int8_gemm")
+        t = time_ms(lambda: ik.int8_gemm(xq, wk_major, sx, sw, b))
+        d = device_ms(lambda: ik.int8_gemm(xq, wk_major, sx, sw, b), "int8_gemm")
+        one_launch("int8_gemm", d, "int8_gemm_mma_kernel")
         plain = time_ms(lambda: ik.int8_gemm_plain(xq, wq, sx, sw, b), iters=3, repeats=3)
-        lib = time_ms(lambda: torch._int_mm(xq, wq))  # the s32 product alone, no epilogue
-        lib_d = device_ms(lambda: torch._int_mm(xq, wq))
+        # The s32 product alone, no epilogue, on either weight layout.
+        libs = {layout: (time_ms(lambda: torch._int_mm(xq, w)),
+                         device_ms(lambda: torch._int_mm(xq, w)))
+                for layout, w in (("row-major", wq), ("K-major", wk_major))}
+        lib_layout = min(libs, key=lambda k: libs[k][1]["ms"])
+        lib, lib_d = libs[lib_layout]
+        # Context: the store floor, one PyTorch fill of an output this size.
+        fill_out = torch.empty((M, N), device=dev)
+        fill_d = device_ms(lambda: fill_out.zero_())
+        plan = ik.int8_gemm_plan(M, K, N)
         b_ms, by = bound(M * K + K * N + 4 * M * N + 4 * (1 + 2 * N), 2.0 * M * K * N)
-        print(f"int8_gemm ({M}, {K}) x ({K}, {N}): max_abs {err} (tol {INT8_TOL}) kernel_ms {fmt(t)} "
-              f"device_ms {fmt_dev(d)} plain_ms {fmt(plain)} _int_mm_ms {fmt(lib)} device_ms "
-              f"{fmt_dev(lib_d)} bound_us {b_ms * 1e3:.2f} ({by})")
+        print(f"int8_gemm ({M}, {K}) x ({K}, {N}), tile {plan.tile_m}x{plan.tile_n}, "
+              f"{plan.blocks} blocks, {plan.copy_bytes}-byte copies: max_abs {err} "
+              f"(tol {INT8_TOL}) kernel_ms {fmt(t)} device_ms {fmt_dev(d)} plain_ms {fmt(plain)} "
+              + "; ".join(f"_int_mm ({k} weights) ms {fmt(v[0])} device_ms {fmt_dev(v[1])}"
+                          for k, v in libs.items())
+              + f"; bound_us {b_ms * 1e3:.2f} ({by}); context, the store floor: a fill "
+              f"(zero_) of the f32 output, device_ms {fill_d['ms']:.4f}")
         if not err <= INT8_TOL:
             fail(f"int8_gemm disagrees with its plain version at {(M, K, N)}: {err}")
         rows.append({"shape": f"({M}, {K}) x ({K}, {N})", "max_abs_err": err, "ms": t["median"],
                      "ms_range": [t["min"], t["max"]], "device_ms": d["ms"],
-                     "device_kernels": d["kernels"], "plain_ms": plain["median"],
-                     "bound_ms": b_ms, "bound_by": by, "library_ms": lib["median"],
-                     "library_device_ms": lib_d["ms"]})
+                     "device_kernels": d["kernels"], "plan": plan._asdict(),
+                     "plain_ms": plain["median"], "bound_ms": b_ms, "bound_by": by,
+                     "library_ms": lib["median"], "library_device_ms": lib_d["ms"],
+                     "library_layout": lib_layout,
+                     "library_device_ms_by_layout": {k: v[1]["ms"] for k, v in libs.items()},
+                     "context_fill_device_ms": fill_d["ms"]})
     return rows
 
 
@@ -670,6 +711,7 @@ def check_crop(name: str, fn, plain_fn, args, plain_args, lib_call, nbytes: int)
     err = (got.float() - plain_fn(*plain_args).float()).abs().max().item()
     t = time_ms(lambda: fn(*args))
     d = device_ms(lambda: fn(*args), "crop_frac")
+    one_launch(name, d, "crop_frac_band_kernel")
     plain = time_ms(lambda: plain_fn(*plain_args), iters=5, repeats=5)
     lib, lib_d = time_ms(lib_call), device_ms(lib_call)
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3

@@ -8,59 +8,59 @@
 // PyTorch version in deepfake_vit_tpu_torch/ops/int8_kernel.py. Plain C
 // interface, loaded with ctypes.
 //
-// Both kernels are one tiled product: a block of 256 threads computes a
-// 64 x 64 output tile, walking K in steps of 32 s8 values. The A tile
-// (activations) and the B tile (weights, (K, N) row-major) are staged in
-// shared memory as words of four consecutive-k s8 values, B transposed in
-// registers with __byte_perm on the way in, and each thread accumulates a
-// 4 x 4 patch with __dp4a (four s8 products per instruction). The two
-// kernels differ only in how a row of A is found: a row of the matrix, or
-// the (batch, row, column) of an output pixel whose k index walks the
-// kernel taps and input channels of an NHWC image (implicit GEMM: no
-// im2col tensor in device memory; padding taps read as zero).
-//
 // What bounds them on an H100: 2*M*K*N operations against 1,979 TOP/s
 // int8, and M*K + K*N + 4*M*N bytes against 3.35 TB/s. Writing the f32
 // output alone takes longer than the operations while K < 2*1979/3.35 =
 // 1181, and the tail's widest products (K = 2688 into N = 448) still move
 // 4480 bytes a row against 2.4e6 operations, 1.34 ns against 1.22 ns: every
-// GEMM of the tail is byte-bound. The detector's 3x3 convolutions have
-// K = 9*Cin; at Cin = Cout = 256 (K = 2304: 1.18e6 operations against 1280
-// bytes an output pixel) they are bound by operations, below that by bytes.
-// This first version runs on the integer pipes (__dp4a), not the tensor
-// cores. Measured on an NVIDIA H100 80GB HBM3 at 700 W by chip_smoke.py: the
-// GEMM takes 1.9x its bound at the tail's largest-M shape and 21x at its
-// largest-K shape (47 and 82 TOP/s); the 3x3 convolutions 8x to 44x.
-// mma.sync / wgmma tiles, cp.async staging and a fused quantize/activation
-// prologue and epilogue are later work.
+// GEMM of the tail is byte-bound, the K = 2688 one barely. The detector's
+// 3x3 convolutions have K = 9*Cin; at Cin = Cout = 256 (K = 2304: 1.18e6
+// operations against 1280 bytes an output pixel) they are bound by
+// operations, below that by bytes.
+//
+// The GEMM (int8_gemm_mma_kernel) runs on the tensor cores: a block
+// computes a 128 x 128 or 128 x 64 output tile (int8_gemm_plan in
+// ops/int8_kernel.py picks 128 x 128 where it makes at least two blocks per
+// SM, else 128 x 64), each warp a 64 x 32 sub-tile as 4 x 4
+// mma.sync.m16n8k32 s8 products with fragments from shared memory through
+// ldmatrix. A and the weights, kept K-major (N, K) by the caller, stream in
+// 64-byte K steps through a three-stage cp.async pipeline, 16-, 8- or
+// 4-byte copies by K's alignment (K = 56 rows are 8-byte aligned only);
+// ragged K steps, M and N tiles read zeros. The epilogue dequantizes in
+// registers and stores straight from the fragments with the evict-first
+// hint: each store instruction of a warp writes whole 32-byte sectors.
+// Tiles run column tile fastest, so the blocks in flight cover whole output
+// rows. Staging the output tile in shared memory for 16-byte stores, a
+// persistent grid that prefetches its next tile under the stores, deeper
+// pipelines and 128-byte K steps measured no faster on the tail's shapes.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, device
+// time: 0.051 ms at (73728, 56) x (56, 336), 1.7x its bound; 0.041 ms at
+// (18432, 160) x (160, 960), 1.9x its bound and 1.8x a plain fill of the
+// output; 0.032-0.034 ms at (4608, 2688) x (2688, 448), 5x its bound, 340
+// TOP/s of mma.sync with two 4-warp blocks on most SMs. torch._int_mm on the
+// same K-major operands takes 0.069, 0.033 and 0.025 ms; wgmma with TMA, or
+// split K for the last shape, is the next step.
+//
+// The convolution is still the first version: one 64 x 64 tile of 256
+// threads on the integer pipes (__dp4a, four s8 products an instruction),
+// K walked in steps of 32 s8 values, A (the (batch, row, column) of an
+// output pixel whose k index walks the kernel taps and input channels of an
+// NHWC image: implicit GEMM, no im2col tensor, padding taps read as zero)
+// and B ((K, N) row-major, transposed in registers with __byte_perm) staged
+// as words of four consecutive-k values; 8x to 44x its bounds (PERF.md).
+// Its mma.sync / wgmma redesign is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+// The convolution's tile.
 constexpr int BM = 64;       // output rows per block
 constexpr int BN = 64;       // output columns per block
 constexpr int BK4 = 8;       // K step in packed words (32 s8 values)
 constexpr int kThreads = 256;  // 16 x 16 threads, a 4 x 4 patch each
 constexpr int kPad = 4;      // keeps tile rows 16-byte aligned, stores conflict-free
-
-// A operand of the GEMM: row m of a (M, K) row-major s8 matrix.
-struct GemmA {
-  const int8_t* x;
-  int M, K;
-  struct Row {
-    const int8_t* p;
-    bool ok;
-  };
-  __device__ Row row(int m) const {
-    return {x + (size_t)(m < M ? m : 0) * K, m < M};
-  }
-  // Four s8 values k..k+3 of the row, packed little-endian.
-  __device__ int load(const Row& r, int k) const {
-    return (r.ok && k < K) ? *reinterpret_cast<const int*>(r.p + k) : 0;
-  }
-};
 
 // A operand of the convolution: output pixel m = (b, ho, wo) of an NHWC s8
 // image; k = (tap_row * ksize + tap_col) * Cin + c, the HWIO kernel's own
@@ -94,6 +94,7 @@ struct ConvA {
   }
 };
 
+// The convolution's tile product:
 // out[m, n] = (f32(sum_k A[m, k] * wq[k, n]) * sx[m / rows_per_scale]) * sw[n] + bias[n]
 template <class A>
 __device__ __forceinline__ void int8_tile_product(
@@ -175,21 +176,6 @@ __device__ __forceinline__ void int8_tile_product(
 }
 
 // ---------------------------------------------------------------------------
-// int8_gemm
-//
-// Replaces deepfake_vit_tpu/models/int8_tail.py::_int8_matmul (an XLA
-// dot_general s8 x s8 -> s32 with the dequantizing multiply-add fused by the
-// compiler; not a Pallas kernel on the TPU). xq (M, K) s8, wq (K, N) s8.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-int8_gemm_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
-                 const float* __restrict__ sx, const float* __restrict__ sw,
-                 const float* __restrict__ bias, float* __restrict__ out, int M,
-                 int K, int N, int rows_per_scale) {
-  int8_tile_product(GemmA{xq, M, K}, wq, sx, sw, bias, out, M, K, N, rows_per_scale);
-}
-
-// ---------------------------------------------------------------------------
 // int8_conv
 //
 // Replaces deepfake_vit_tpu/models/scrfd_int8.py::ScrfdInt8Runner._conv_s8
@@ -211,23 +197,248 @@ int8_conv_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ kq,
 
 dim3 tiles(int M, int N) { return dim3((M + BM - 1) / BM, (N + BN - 1) / BN); }
 
+// ---------------------------------------------------------------------------
+// int8_gemm
+//
+// Replaces deepfake_vit_tpu/models/int8_tail.py::_int8_matmul (an XLA
+// dot_general s8 x s8 -> s32 with the dequantizing multiply-add fused by the
+// compiler; not a Pallas kernel on the TPU). xq (M, K) s8 row-major; the
+// weights as wt (N, K) s8, K-major: mma.sync takes B with K contiguous per
+// column, and the tail's weights are static, so the runner keeps this copy
+// once (models/int8_tail.py) instead of transposing in the loader.
+// ---------------------------------------------------------------------------
+namespace mma {
+
+constexpr int WM = 64, WN = 32;  // warp tile: 4 x 4 m16n8 tiles
+constexpr int BK = 64;           // K step: two m16n8k32 steps
+constexpr int kStages = 3;       // cp.async pipeline depth
+constexpr int kRowBytes = BK + 16;  // smem row stride: ldmatrix rows hit distinct banks
+
+template <int kW>  // bytes per copy: 16, 8 or 4; zero-filled where !valid
+__device__ __forceinline__ void cp_async(void* smem_dst, const void* src, bool valid) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
+  const int n = valid ? kW : 0;
+  if constexpr (kW == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src), "n"(kW),
+                 "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* smem_row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(smem_row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void mma_s8(int* c, const unsigned* a, const unsigned* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// A configuration of the GEMM kernel: a BM x BN block tile of 64 x 32 warp
+// tiles.
+template <int BM_, int BN_>
+struct Config {
+  static constexpr int BM = BM_, BN = BN_;
+  static constexpr int kWarpsN = BN / WN, kThreads = (BM / WM) * kWarpsN * 32;
+  static constexpr int kStageBytes = (BM + BN) * kRowBytes;
+  static constexpr int kSmem = kStages * kStageBytes;
+};
+
+// Rows row0.. of a K-contiguous s8 matrix with `rows` rows, K step k0, into
+// a ROWS x BK tile of kRowBytes-byte rows. K % kW == 0, so a copy lies wholly
+// inside or wholly outside the matrix; outside reads as zero.
+template <class Cfg, int kW, int ROWS>
+__device__ __forceinline__ void load_tile(unsigned char* dst, const int8_t* __restrict__ src,
+                                          int row0, int rows, int K, int k0, int tid) {
+  constexpr int kPerRow = BK / kW, kCopies = ROWS * kPerRow, T = Cfg::kThreads;
+#pragma unroll
+  for (int i = 0; i < (kCopies + T - 1) / T; ++i) {
+    const int u = tid + i * T;
+    if (kCopies % T != 0 && u >= kCopies) break;
+    const int rr = u / kPerRow, cc = u % kPerRow;
+    const int row = row0 + rr, k = k0 + cc * kW;
+    const bool ok = row < rows && k < K;
+    cp_async<kW>(dst + rr * kRowBytes + cc * kW, ok ? src + (size_t)row * K + k : src, ok);
+  }
+}
+
+// Tiles are numbered column tile fastest, so the blocks in flight together
+// cover whole rows of the output.
+template <class Cfg, int kW>
+__global__ void __launch_bounds__(Cfg::kThreads)
+int8_gemm_mma_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wt,
+                     const float* __restrict__ sx, const float* __restrict__ sw,
+                     const float* __restrict__ bias, float* __restrict__ out, int M, int K,
+                     int N, int rows_per_scale) {
+  constexpr int BM = Cfg::BM, BN = Cfg::BN, A_BYTES = BM * kRowBytes;
+  constexpr int kMT = WM / 16, kNT = WN / 8, kHalves = BK / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / Cfg::kWarpsN, wn = warp % Cfg::kWarpsN;
+  const int tiles_n = (N + BN - 1) / BN;
+  const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * BN;
+  const int KT = (K + BK - 1) / BK;
+
+  auto load_stage = [&](int kt) {
+    unsigned char* st = smem + (kt % kStages) * Cfg::kStageBytes;
+    load_tile<Cfg, kW, BM>(st, xq, m0, M, K, kt * BK, tid);
+    load_tile<Cfg, kW, BN>(st + A_BYTES, wt, n0, N, K, kt * BK, tid);
+  };
+
+  int acc[kMT][kNT][4] = {};  // [m16 tile][n8 tile][fragment]
+#pragma unroll
+  for (int kt = 0; kt < kStages - 1; ++kt) {
+    if (kt < KT) load_stage(kt);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // step kt has landed; every warp is done with step kt - 1
+    if (kt + kStages - 1 < KT) load_stage(kt + kStages - 1);
+    cp_async_commit();
+    const unsigned char* As = smem + (kt % kStages) * Cfg::kStageBytes;
+    const unsigned char* Bs = As + A_BYTES;
+    // All k32 steps' fragments first, then their products: the asm
+    // statements keep their order, so each step's mma waits only on its own
+    // loads. A ragged last K step's zero-filled part adds zero.
+    unsigned a[kHalves][kMT][4], b[kHalves][kNT][2];
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) {
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+        ldmatrix_x4(a[h][mt], As + (wm * WM + mt * 16 + (lane & 15)) * kRowBytes + 32 * h +
+                                  (lane >> 4) * 16);
+#pragma unroll
+      for (int np = 0; np < kNT / 2; ++np) {
+        unsigned r[4];
+        ldmatrix_x4(r, Bs + (wn * WN + np * 16 + ((lane >> 4) << 3) + (lane & 7)) * kRowBytes +
+                           32 * h + ((lane >> 3) & 1) * 16);
+        b[h][2 * np][0] = r[0];
+        b[h][2 * np][1] = r[1];
+        b[h][2 * np + 1][0] = r[2];
+        b[h][2 * np + 1][1] = r[3];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h)
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) mma_s8(acc[mt][nt], a[h][mt], b[h][nt]);
+  }
+
+  // Epilogue, straight from the fragments: fragment (mt, nt) holds rows
+  // wm*64 + mt*16 + g (+8) and columns wn*32 + nt*8 + 2*t4 (+1). Dequantize
+  // in registers in the fixed order, (f32(acc) * sx) * sw, then + bias, and
+  // store with the evict-first hint (the output is read by the next kernel,
+  // not by this one). A warp's store instruction writes whole 32-byte
+  // sectors: eight rows of 32 bytes.
+  const int g = lane >> 2, t4 = lane & 3;
+  float wv[kNT][2], bv[kNT][2];
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = n0 + wn * WN + nt * 8 + 2 * t4 + j;
+      wv[nt][j] = n < N ? sw[n] : 0.0f;
+      bv[nt][j] = (bias != nullptr && n < N) ? bias[n] : 0.0f;
+    }
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * WM + mt * 16 + h * 8 + g;
+      if (m >= M) continue;
+      const float s = sx[m / rows_per_scale];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int n = n0 + wn * WN + nt * 8 + 2 * t4;
+        if (n >= N) continue;  // N % 4 == 0 and n even: both columns are inside
+        float v0 = __fmul_rn(__fmul_rn((float)acc[mt][nt][2 * h], s), wv[nt][0]);
+        float v1 = __fmul_rn(__fmul_rn((float)acc[mt][nt][2 * h + 1], s), wv[nt][1]);
+        if (bias != nullptr) {
+          v0 = __fadd_rn(v0, bv[nt][0]);
+          v1 = __fadd_rn(v1, bv[nt][1]);
+        }
+        __stcs(reinterpret_cast<float2*>(out + (size_t)m * N + n), make_float2(v0, v1));
+      }
+    }
+}
+
+template <class Cfg, int kW>
+int launch_gemm(const int8_t* xq, const int8_t* wt, const float* sx, const float* sw,
+                const float* bias, float* out, int M, int K, int N, int rows_per_scale,
+                cudaStream_t stream) {
+  auto kernel = int8_gemm_mma_kernel<Cfg, kW>;
+  if (Cfg::kSmem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const long long tiles =
+      (long long)((N + Cfg::BN - 1) / Cfg::BN) * ((M + Cfg::BM - 1) / Cfg::BM);
+  kernel<<<(unsigned)tiles, Cfg::kThreads, Cfg::kSmem, stream>>>(xq, wt, sx, sw, bias, out, M,
+                                                                 K, N, rows_per_scale);
+  return (int)cudaGetLastError();
+}
+
+template <class Cfg>
+int launch_config(int copy_bytes, const int8_t* xq, const int8_t* wt, const float* sx,
+                  const float* sw, const float* bias, float* out, int M, int K, int N,
+                  int rows_per_scale, cudaStream_t stream) {
+  switch (copy_bytes) {
+    case 16: return launch_gemm<Cfg, 16>(xq, wt, sx, sw, bias, out, M, K, N, rows_per_scale, stream);
+    case 8: return launch_gemm<Cfg, 8>(xq, wt, sx, sw, bias, out, M, K, N, rows_per_scale, stream);
+    case 4: return launch_gemm<Cfg, 4>(xq, wt, sx, sw, bias, out, M, K, N, rows_per_scale, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+using Launch = int (*)(int, const int8_t*, const int8_t*, const float*, const float*,
+                       const float*, float*, int, int, int, int, cudaStream_t);
+
+// The block tiles int8_gemm_plan (ops/int8_kernel.py) chooses from, by
+// index.
+constexpr Launch kConfigs[] = {
+    launch_config<Config<128, 128>>,
+    launch_config<Config<128, 64>>,
+};
+constexpr int kNumConfigs = sizeof(kConfigs) / sizeof(kConfigs[0]);
+
+}  // namespace mma
+
 }  // namespace
 
 extern "C" {
 
 // Both return cudaGetLastError() after the launch (0 when it was accepted).
 // K and N (Cin and Cout) must be multiples of 4 and every pointer 16-byte
-// aligned; sx holds ceil(M / rows_per_scale) scales; bias may be null.
+// aligned; sx holds ceil(M / rows_per_scale) scales; bias may be null. The
+// GEMM takes its weights K-major, wt (N, K); config (an index into
+// mma::kConfigs) and copy_bytes (16, 8 or 4, dividing K) come from
+// int8_gemm_plan.
 
-int dfv_int8_gemm(const void* xq, const void* wq, const void* sx, const void* sw,
-                  const void* bias, void* out, int M, int K, int N,
-                  int rows_per_scale, void* stream) {
-  if (M > 0 && N > 0) {
-    int8_gemm_kernel<<<tiles(M, N), kThreads, 0, (cudaStream_t)stream>>>(
-        (const int8_t*)xq, (const int8_t*)wq, (const float*)sx, (const float*)sw,
-        (const float*)bias, (float*)out, M, K, N, rows_per_scale);
-  }
-  return (int)cudaGetLastError();
+int dfv_int8_gemm(const void* xq, const void* wt, const void* sx, const void* sw,
+                  const void* bias, void* out, int M, int K, int N, int rows_per_scale,
+                  int config, int copy_bytes, void* stream) {
+  if (config < 0 || config >= mma::kNumConfigs) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0) return (int)cudaGetLastError();
+  return mma::kConfigs[config](copy_bytes, (const int8_t*)xq, (const int8_t*)wt,
+                               (const float*)sx, (const float*)sw, (const float*)bias,
+                               (float*)out, M, K, N, rows_per_scale, (cudaStream_t)stream);
 }
 
 int dfv_int8_conv(const void* xq, const void* kq, const void* sx, const void* sw,

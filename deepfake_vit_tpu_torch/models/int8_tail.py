@@ -5,7 +5,8 @@ the operations are — run as s8×s8→s32 products through the hand-written
 GEMM kernel (``ops/int8_kernel.py::int8_gemm``), with per-output-channel
 weight scales and either calibrated static or dynamic per-image activation
 scales. Depthwise convs, squeeze-excitation and the head conv stay bf16.
-BatchNorm is folded into the conv weights when the runner is built.
+BatchNorm is folded into the conv weights when the runner is built, and the
+quantized weights are kept K-major, as the GEMM kernel reads them.
 
 Counterpart of ``deepfake_vit_tpu/models/int8_tail.py`` with the same
 rounding points: bf16 after each SiLU, f32 bias add, f32 residual add
@@ -31,6 +32,14 @@ def default_tail_start(variant: str) -> int:
     """First block of stage 4 (the second 14² stage) — blocks 16-31 for b4."""
     _, depth, _, _ = VARIANT_PARAMS[variant]
     return sum(round_repeats(r, depth) for r, *_ in _B0_STAGES[:4])
+
+
+def _gemm_weights(w: torch.Tensor):
+    """Quantized (Cin, Cout) weights for ``int8_gemm``: (wq, sw) with wq
+    stored K-major, the (Cin, Cout) view of a contiguous (Cout, Cin)
+    tensor, which the kernel reads without a copy."""
+    wq, sw = quant_w(w)
+    return wq.t().contiguous().t(), sw
 
 
 def _int8_matmul(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, bias: torch.Tensor,
@@ -79,7 +88,7 @@ class Int8TailRunner:
             entry: Dict[str, Any] = {"args": backbone.blocks[i]}
             if blk.expand_ratio != 1:
                 k, b = folded_hwio(blk.expand_conv, blk.bn0)
-                entry["exp"] = (*quant_w(k[0, 0]), b)
+                entry["exp"] = (*_gemm_weights(k[0, 0]), b)
             kdw, bdw = folded_hwio(blk.depthwise_conv, blk.bn1)
             entry["dw"] = (kdw.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(), bdw)
             with torch.no_grad():
@@ -90,7 +99,7 @@ class Int8TailRunner:
                     blk.se_expand.bias.detach().float(),
                 )
             k, b = folded_hwio(blk.project_conv, blk.bn2)
-            entry["proj"] = (*quant_w(k[0, 0]), b)
+            entry["proj"] = (*_gemm_weights(k[0, 0]), b)
             self.blocks.append(entry)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:

@@ -25,15 +25,19 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "deepfake_vit_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
+# The sm_90a card the kernels are planned for (H100): shared memory one
+# block can ask for (227 KB) and streaming multiprocessors.
+SMEM_PER_BLOCK = 232448
+SM_COUNT = 132
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # The extern "C" interface of csrc/*.cu; every function returns cudaError.
 _SIGNATURES = {
-    "dfv_crop_frac_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dfv_crop_frac_bf16": [*[_P] * 8, *[_I] * 9, _P],
     "dfv_crop_pool_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "dfv_warp_affine_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "dfv_warp_affine_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "dfv_int8_gemm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "dfv_int8_gemm": [*[_P] * 6, *[_I] * 6, _P],
     "dfv_int8_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _I, _P],
     "dfv_fused_stem": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

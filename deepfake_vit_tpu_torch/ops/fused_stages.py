@@ -38,12 +38,11 @@ import torch
 import torch.nn.functional as F
 
 from ..models.quant import folded_hwio
-from .cuda_build import check, library, stream
+from .cuda_build import SMEM_PER_BLOCK, check, library, stream
 
 LAUNCHES_PER_BLOCK = 3  # device launches behind one run_block call
 _TILE = 8               # the kernels' output tile (csrc/fused.cu)
 _CHUNK = 32             # expanded channels per chunk there
-_MAX_SMEM = 232448      # 227 KB: the most one block can ask for
 _MAX_COUT = 192         # projection accumulators per thread: 4 x 48
 
 
@@ -189,9 +188,9 @@ def check_plan(name: str, bp: BlockPlan) -> None:
     if bp.cout > _MAX_COUT:
         raise ValueError(f"{name}: cout = {bp.cout} exceeds the kernel's {_MAX_COUT}")
     need = block_smem_bytes(bp)
-    if need > _MAX_SMEM:
+    if need > SMEM_PER_BLOCK:
         raise ValueError(f"{name}: the tile needs {need} bytes of shared memory, "
-                         f"more than a block's {_MAX_SMEM}")
+                         f"more than a block's {SMEM_PER_BLOCK}")
 
 
 def check_block(name: str, bp: BlockPlan, x: torch.Tensor, weights) -> None:

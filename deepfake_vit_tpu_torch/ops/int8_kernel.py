@@ -10,6 +10,8 @@ are one value for the whole tensor (static, calibrated) or one per image
 kernels; stock PyTorch has no CUDA int8 convolution and ``torch._int_mm`` is
 a library call, so each has a kernel of the port's own.
 
+The GEMM runs on the tensor cores (``mma.sync`` s8 tiles, a tile per
+shape from :func:`int8_gemm_plan`); the convolution on the integer pipes.
 Each wrapper checks its inputs, allocates the output with ``torch.empty``
 and launches its kernel on the current stream for CUDA tensors; for CPU
 tensors it runs the plain PyTorch version beside it. The plain versions sum
@@ -21,13 +23,13 @@ nothing else.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..models.layers import same_pads
-from .cuda_build import check, library, stream
+from .cuda_build import SM_COUNT, SMEM_PER_BLOCK, check, library, stream
 
 
 def _dequant(acc: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
@@ -76,6 +78,40 @@ def int8_gemm_plain(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor, sw: to
     return _dequant(acc.reshape(sx.numel(), -1, N), sx, sw, bias).reshape(M, N)
 
 
+# The block tiles of the GEMM kernel, (rows, columns), in the order of
+# csrc/int8.cu::kConfigs: 64 × 32 warp tiles, 64-byte K steps in a
+# three-stage pipeline of 80-byte shared-memory rows.
+GEMM_TILES = ((128, 128), (128, 64))
+
+
+class GemmPlan(NamedTuple):
+    """Launch plan of the GEMM kernel (``int8_gemm_mma_kernel``)."""
+
+    config: int       # index into GEMM_TILES
+    tile_m: int
+    tile_n: int
+    copy_bytes: int   # bytes per cp.async copy: 16, 8 or 4, the largest dividing K
+    k_padded: int     # K rounded up to the 64-byte K step: the last step reads zeros
+    smem_bytes: int
+    blocks: int
+
+
+def int8_gemm_plan(M: int, K: int, N: int) -> GemmPlan:
+    """Block tile of the GEMM kernel for one shape: 128 × 128 where those
+    tiles make at least two blocks for each of the H100's 132 SMs, so that
+    the last wave's idle SMs cost little; otherwise 128 × 64, twice the
+    blocks. At (4608, 2688, 448), for one, 128 × 128 tiles make 144 blocks,
+    two on 12 SMs and one on the rest; 128 × 64 tiles make 252, two on
+    nearly every SM."""
+    config = 0 if -(-M // 128) * -(-N // 128) >= 2 * SM_COUNT else 1
+    bm, bn = GEMM_TILES[config]
+    smem = 3 * (bm + bn) * 80
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"int8_gemm: a {bm} x {bn} tile needs {smem} bytes of shared memory")
+    copy = next(b for b in (16, 8, 4) if K % b == 0)
+    return GemmPlan(config, bm, bn, copy, -(-K // 64) * 64, smem, -(-M // bm) * -(-N // bn))
+
+
 def int8_gemm(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
               bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``(f32(xq @ wq)·sx)·sw + bias`` with an exact s32 product.
@@ -84,6 +120,11 @@ def int8_gemm(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor, sw: torch.Te
     dividing M — consecutive groups of M/S rows share one activation scale
     (S = 1: one static scale; S = images: per-image dynamic scales).
     K and N must be multiples of 4. Returns (M, N) f32.
+
+    The kernel reads the weights K-major. A ``wq`` stored so — the (K, N)
+    transpose view of a contiguous (N, K) tensor, as ``Int8TailRunner``
+    keeps its weights — goes to it as it is; any other ``wq`` is copied
+    K-major first, and that copy is work of the call.
     """
     if xq.dim() != 2 or wq.dim() != 2 or xq.shape[1] != wq.shape[0]:
         raise ValueError(f"int8_gemm: shapes {tuple(xq.shape)} x {tuple(wq.shape)} do not multiply")
@@ -100,10 +141,14 @@ def int8_gemm(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor, sw: torch.Te
         return int8_gemm_plain(xq, wq, sx, sw, bias)
     if dev.type != "cuda":
         raise RuntimeError(f"int8_gemm has no kernel for device {dev}")
-    xq, wq, sx, sw, bias = (_aligned(t) for t in (xq, wq, sx, sw, bias))
+    if N > 65535 * 64:
+        raise ValueError(f"int8_gemm: N = {N} is more column tiles than a grid holds")
+    plan = int8_gemm_plan(M, K, N)
+    xq, wt, sx, sw, bias = (_aligned(t) for t in (xq, wq.t(), sx, sw, bias))
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
-    err = library().dfv_int8_gemm(xq.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-                                  _ptr(bias), out.data_ptr(), M, K, N, rows_per_scale, stream())
+    err = library().dfv_int8_gemm(xq.data_ptr(), wt.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+                                  _ptr(bias), out.data_ptr(), M, K, N, rows_per_scale,
+                                  plan.config, plan.copy_bytes, stream())
     check(err, "int8_gemm")
     int8_gemm.launches += 1
     return out
@@ -187,4 +232,5 @@ def int8_conv(xq: torch.Tensor, kq: torch.Tensor, sx: torch.Tensor, sw: torch.Te
 int8_conv.launches = 0
 
 
-__all__ = ["int8_gemm", "int8_gemm_plain", "int8_conv", "int8_conv_plain"]
+__all__ = ["GEMM_TILES", "GemmPlan", "int8_conv", "int8_conv_plain", "int8_gemm", "int8_gemm_plain",
+           "int8_gemm_plan"]

@@ -23,18 +23,19 @@ The library is built on first use (``ops/cuda_build.py``).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .cuda_build import BUILD_DIR, NVCC_FLAGS, build_library, check, library, stream
+from .cuda_build import (BUILD_DIR, NVCC_FLAGS, SMEM_PER_BLOCK, build_library, check, library,
+                         stream)
 from .umeyama import invert_affine
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "WARP_KERNELS", "build_library", "crop_frac",
-           "crop_frac_mxu", "crop_frac_plain", "crop_pool", "crop_pool_plain",
-           "warp_affine_int8", "warp_affine_int8_plain", "warp_affine_legacy",
-           "warp_affine_legacy_plain", "warp_affine_uw", "warp_affine_uw16",
-           "warp_affine_uw_plain"]
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "WARP_KERNELS", "CropFracPlan", "build_library",
+           "crop_frac", "crop_frac_mxu", "crop_frac_plain", "crop_frac_plan",
+           "crop_pool", "crop_pool_plain", "warp_affine_int8", "warp_affine_int8_plain",
+           "warp_affine_legacy", "warp_affine_legacy_plain", "warp_affine_uw",
+           "warp_affine_uw16", "warp_affine_uw_plain"]
 
 _TAPS = {"legacy": 0, "mxu": 1, "uw": 1, "uw16": 1}  # the kernels' ``taps`` argument
 
@@ -105,6 +106,39 @@ def crop_frac_plain(frames_flat, strip0, level, rfp, off_y, x0f, window: int,
     return out.to(frames_flat.dtype)
 
 
+class CropFracPlan(NamedTuple):
+    """Launch plan of the fractional crop kernel (``crop_frac_band_kernel``)."""
+
+    band: int          # output rows per block
+    slot_bytes: int    # one staged source row at the largest r: the 16-byte superset of a frame row
+    slot_budget: int   # shared-memory bytes for row slots; at least two slots
+    smem_bytes: int    # the block's dynamic shared memory: slots and tap tables
+
+
+_CROP_BAND = 8
+_CROP_SLOT_BUDGET = 32 * 1024
+
+
+def crop_frac_plan(window: int, channels: int, width: int) -> CropFracPlan:
+    """Band height and shared memory of the crop kernel for one launch.
+
+    A staged row spans the columns the output columns' taps touch, clipped
+    to the frame, so at any r (the geometry's r has no upper bound: a quad
+    larger than the frame gives r > H/window) a slot holds at most the
+    16-byte-aligned superset of a whole frame row. The slot area holds at
+    least two such rows, the two source rows of one output row, so a pass
+    always makes progress; at r ~ 1 it holds a whole band. The tap tables
+    take 12 bytes per output column and 36 per band row."""
+    band = min(_CROP_BAND, window)
+    slot_bytes = -(-width * channels * 2 // 16) * 16 + 16
+    slot_budget = max(_CROP_SLOT_BUDGET, 2 * slot_bytes)
+    smem = slot_budget + 12 * window + 36 * band
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"crop_frac: frames {width} wide with {channels} channels need "
+                         f"{smem} bytes of shared memory a block, more than {SMEM_PER_BLOCK}")
+    return CropFracPlan(band, slot_bytes, slot_budget, smem)
+
+
 def _crop_frac(fn, construction: str, frames_flat, strip0, level, r, off_y, x0f,
                window: int, channels: int, frame_idx) -> torch.Tensor:
     if frames_flat.dim() != 3 or frames_flat.shape[2] % channels:
@@ -114,31 +148,35 @@ def _crop_frac(fn, construction: str, frames_flat, strip0, level, r, off_y, x0f,
     if window <= 0:
         raise ValueError("window must be positive")
     N, H = strip0.shape[0], frames_flat.shape[1]
-    if frame_idx is None:
-        frame_idx = torch.arange(N, device=frames_flat.device)
-    scalars = [
-        strip0.to(torch.int32).contiguous(),
-        level.to(torch.int32).contiguous(),
-        frame_idx.to(torch.int32).contiguous(),
-        torch.round(r.float() * 65536.0).to(torch.int32).contiguous(),
-        off_y.to(torch.int32).contiguous(),
-        x0f.to(torch.int32).contiguous(),
-    ]
+    W = frames_flat.shape[2] // channels
     dev = frames_flat.device
+    scalars = (strip0, level, r, off_y, x0f) + (() if frame_idx is None else (frame_idx,))
     if any(s.device != dev or s.shape != (N,) for s in scalars):
         raise ValueError("per-face scalars must be (N,) tensors on the frames' device")
     if dev.type == "cpu":
-        return crop_frac_plain(frames_flat, *scalars[:2], scalars[3], *scalars[4:],
-                               window=window, channels=channels, frame_idx=scalars[2],
-                               construction=construction)
+        fidx = torch.arange(N) if frame_idx is None else frame_idx
+        return crop_frac_plain(frames_flat, strip0.to(torch.int32), level.to(torch.int32),
+                               torch.round(r.float() * 65536.0).to(torch.int32),
+                               off_y.to(torch.int32), x0f.to(torch.int32), window, channels,
+                               fidx.to(torch.int32), construction)
     if dev.type != "cuda":
         raise RuntimeError(f"{fn.__name__} has no kernel for device {dev}")
+    if (window * channels) % 8 or N > 65535:
+        raise ValueError(f"{fn.__name__}: the kernel takes window * channels a multiple of 8 "
+                         f"and at most 65535 faces, got {window} * {channels} and {N}")
+    plan = crop_frac_plan(window, channels, W)
+    # The kernel's own types: no conversion launches when the geometry's
+    # tensors are passed as they come.
+    ints = [t.to(torch.int32).contiguous() for t in (strip0, level)]
+    floats = [t.to(torch.float32).contiguous() for t in (r, off_y, x0f)]
+    fidx = None if frame_idx is None else frame_idx.to(torch.int32).contiguous()
     frames_flat = frames_flat.contiguous()
     out = torch.empty((N, window, window * channels), dtype=torch.bfloat16, device=dev)
     err = library().dfv_crop_frac_bf16(
-        frames_flat.data_ptr(), out.data_ptr(),
-        *(s.data_ptr() for s in scalars),
-        N, H, frames_flat.shape[2] // channels, channels, window, _TAPS[construction], stream(),
+        frames_flat.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in ints),
+        None if fidx is None else fidx.data_ptr(), *(t.data_ptr() for t in floats),
+        N, H, W, channels, window, _TAPS[construction], plan.band, plan.slot_budget,
+        plan.smem_bytes, stream(),
     )
     check(err, fn.__name__)
     fn.launches += 1
@@ -153,12 +191,19 @@ def crop_frac(frames_flat: torch.Tensor, strip0: torch.Tensor, level: torch.Tens
 
     frames_flat: (B, H, W·C) bf16 row-flattened frames; per face (N,):
     ``strip0`` level-0 strip start row, ``level`` strip bucket (rows
-    ``min(window·2ˡ, H)``), ``r`` resample factor on the 2⁻¹⁶ grid,
-    ``off_y`` strip-relative and ``x0f`` absolute integer-valued window
-    starts, ``frame_idx`` source frame (default: identity). Returns
+    ``min(window·2ˡ, H)``), ``r`` resample factor on the 2⁻¹⁶ grid and at
+    most 2⁸, ``off_y`` strip-relative and ``x0f`` absolute integer-valued
+    window starts, ``frame_idx`` source frame (default: identity). Returns
     (N, window, window·C) bf16: the window resampled at stride ``r`` with
     bilinear point taps, rows restricted to the face's strip and columns to
     the frame (taps outside read as border 0).
+
+    On a CUDA device the call launches the kernel and nothing else when the
+    scalars come in the kernel's types, as ``window_geometry_frac`` makes
+    them: ``strip0`` and ``level`` int32, ``r``, ``off_y`` and ``x0f``
+    float32, ``frame_idx`` None or int32. Scalars of other types are
+    converted first, and the conversion is work of the call. The kernel
+    needs ``window·C`` a multiple of 8.
     """
     return _crop_frac(crop_frac, "legacy", frames_flat, strip0, level, r, off_y, x0f,
                       window, channels, frame_idx)

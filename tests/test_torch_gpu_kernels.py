@@ -49,8 +49,16 @@ def _faces(n, H, W, window, out, dev, seed=0):
     return window_geometry_frac(A, out, (H, W), window, frac_window_levels(H, window), y_align=16)
 
 
+def _plain_crop(frames, strip0, level, r, off_y, x0f, window, fidx, construction):
+    """crop_frac_plain on the int32 forms of the geometry, 3 channels."""
+    return wk.crop_frac_plain(frames, strip0.int(), level.int(), torch.round(r * 65536).int(),
+                              off_y.int(), x0f.int(), window, 3, fidx.int(), construction)
+
+
 @pytest.mark.parametrize("shared_frames", [False, True])
 def test_crop_frac_kernel_matches_plain(dev, shared_frames):
+    """One frame a face with frame_idx None (the identity), or 96 faces on
+    8 frames; the geometry's own float32 r, off_y and x0f go in as they are."""
     H, W, C, window, out, N = 640, 640, 3, 128, (192, 192), 96
     level, strip0s, r, off_y, x0f, _ = _faces(N, H, W, window, out, dev)
     strip0 = strip0s[level.long(), torch.arange(N, device=dev)]
@@ -58,12 +66,56 @@ def test_crop_frac_kernel_matches_plain(dev, shared_frames):
     frames = torch.randint(0, 256, (B, H, W * C), device=dev).to(torch.bfloat16)
     fidx = torch.arange(N, device=dev) % B
     before = wk.crop_frac.launches
-    got = wk.crop_frac(frames, strip0, level, r, off_y, x0f, window, C, frame_idx=fidx)
+    got = wk.crop_frac(frames, strip0, level, r, off_y, x0f, window, C,
+                       frame_idx=fidx if shared_frames else None)
     torch.cuda.synchronize()
     assert wk.crop_frac.launches == before + 1
-    want = wk.crop_frac_plain(frames, strip0.int(), level.int(), torch.round(r * 65536).int(),
-                              off_y.int(), x0f.int(), window, C, fidx.int())
-    assert torch.equal(got, want)
+    assert torch.equal(got, _plain_crop(frames, strip0, level, r, off_y, x0f, window, fidx,
+                                        "legacy"))
+
+
+@pytest.mark.parametrize("construction", ["legacy", "mxu"])
+def test_crop_frac_kernel_edges_and_buckets(dev, construction):
+    """Every strip bucket, the whole-frame bucket at r of about 5 and more
+    (quads larger than the frame), faces at the frame's left, right, top and
+    bottom edges and past them, r = 1 windows copied exactly; general bf16
+    pixels; one launch a call, and nothing else on the device."""
+    H, W, C, window, out = 640, 640, 3, 128, (192, 192)
+    cases = [(x, y, s) for s in (0.4, 0.9, 1.6, 2.7, 3.3, 4.5) for x, y in
+             ((4, 320), (636, 320), (320, 636), (320, 3), (-30, 660), (670, -25), (320, 320))]
+    n = len(cases)
+    th = torch.linspace(-0.3, 0.3, n)
+    A = torch.zeros((n, 2, 3))
+    for k, (x, y, sc) in enumerate(cases):
+        c, s_ = sc * float(torch.cos(th[k])), sc * float(torch.sin(th[k]))
+        A[k] = torch.tensor([[c, -s_, 0.0], [s_, c, 0.0]])
+        A[k, :, 2] = torch.tensor([x, y]) - A[k, :, :2] @ torch.tensor([95.5, 95.5])
+    A = A.to(dev)
+    levels = frac_window_levels(H, window)
+    level, strip0s, r, off_y, x0f, _ = window_geometry_frac(A, out, (H, W), window, levels,
+                                                            y_align=16)
+    assert set(level.tolist()) == set(range(levels)) and float(r.max()) > 5.0
+    assert (r == 1.0).any()
+    strip0 = strip0s[level.long(), torch.arange(n, device=dev)]
+    g = torch.Generator(device="cpu").manual_seed(5)
+    frames = (torch.rand((n, H, W * C), generator=g) * 255).to(torch.bfloat16).to(dev)
+    fn = wk.crop_frac if construction == "legacy" else wk.crop_frac_mxu
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    before = fn.launches
+    with torch.profiler.profile(activities=acts) as prof:
+        got = fn(frames, strip0, level, r, off_y, x0f, window, C)
+        torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    launched = [ev.key for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA for _ in range(ev.count)]
+    assert len(launched) == 1 and "crop_frac_band_kernel" in launched[0], launched
+    fidx = torch.arange(n, device=dev)
+    assert torch.equal(got, _plain_crop(frames, strip0, level, r, off_y, x0f, window, fidx,
+                                        construction))
+    k = int(torch.nonzero(r == 1.0)[0, 0])  # r = 1: the window itself
+    y0, x0 = int(strip0[k] + off_y[k]), int(x0f[k])
+    src = frames[k].reshape(H, W, C)[y0:y0 + window, x0:x0 + window]
+    assert torch.equal(got[k].reshape(window, window, C), src)
 
 
 @pytest.mark.parametrize("pixels", ["integer", "general"])
@@ -101,15 +153,26 @@ def test_crop_pool_kernel_matches_plain(dev, pixels):
 
 
 @pytest.mark.parametrize("M,K,N,scales,bias", [
-    (128 * 576, 56, 336, 1, True),       # largest M of the tail, K not a multiple of 32
+    (128 * 576, 56, 336, 1, True),       # largest M of the tail, K not a multiple of 32 or 16
+    (128 * 144, 160, 960, 128, True),    # K = 5 mma steps, per-image dynamic scales
     (128 * 36, 2688, 448, 128, True),    # largest K, per-image dynamic scales
     (1000, 960, 160, 1, False),          # ragged M tile, no bias
     (70, 112, 52, 70, True),             # ragged N tile, one scale per row
+    (300, 4, 4, 300, False),             # K = 4 (4-byte copies), N = 4, per row, no bias
+    (257, 36, 52, 1, True),              # K = 36: ragged K step of 4-byte copies
 ])
-def test_int8_gemm_kernel_matches_plain(dev, M, K, N, scales, bias):
+@pytest.mark.parametrize("layout", ["k_major", "row_major"])
+def test_int8_gemm_kernel_matches_plain(dev, M, K, N, scales, bias, layout):
+    """Bit for bit, on operands spanning [-128, 127] with rows and columns
+    at the extremes; the K-major weights (the tail runner's) are read as
+    they are, row-major ones copied first."""
     g = torch.Generator(device="cpu").manual_seed(M + K)
-    xq = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8).to(dev)
-    wq = torch.randint(-127, 128, (K, N), generator=g, dtype=torch.int8).to(dev)
+    xq = torch.randint(-128, 128, (M, K), generator=g, dtype=torch.int8)
+    wq = torch.randint(-128, 128, (K, N), generator=g, dtype=torch.int8)
+    xq[0], xq[-1], wq[:, 0], wq[:, -1] = -128, 127, -128, 127
+    xq, wq = xq.to(dev), wq.to(dev)
+    if layout == "k_major":
+        wq = wq.t().contiguous().t()
     sx = (torch.rand(scales, generator=g) * 0.05 + 0.01).to(dev)
     sw = (torch.rand(N, generator=g) * 0.01 + 0.001).to(dev)
     b = torch.randn(N, generator=g).to(dev) if bias else None
@@ -173,9 +236,7 @@ def test_crop_frac_mxu_kernel_matches_plain(dev, shared_frames):
     got = wk.crop_frac_mxu(frames, strip0, level, r, off_y, x0f, window, C, frame_idx=fidx)
     torch.cuda.synchronize()
     assert (wk.crop_frac_mxu.launches, wk.crop_frac.launches) == (before[0] + 1, before[1])
-    want = wk.crop_frac_plain(frames, strip0.int(), level.int(), torch.round(r * 65536).int(),
-                              off_y.int(), x0f.int(), window, C, fidx.int(), construction="mxu")
-    assert torch.equal(got, want)
+    assert torch.equal(got, _plain_crop(frames, strip0, level, r, off_y, x0f, window, fidx, "mxu"))
     exact = r == 1.0
     assert exact.any()
     legacy = wk.crop_frac(frames, strip0, level, r, off_y, x0f, window, C, frame_idx=fidx)
