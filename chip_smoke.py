@@ -14,18 +14,23 @@
    Beside them each kernel's and each library call's own device time from
    ``torch.profiler`` over the same launches (``device_ms``,
    ``library_device_ms``): the numbers to compare a kernel with its
-   library call and its bound. The crop and GEMM wrappers must launch
-   exactly one device kernel a call. The GEMM gets K-major weights, as the
+   library call and its bound. The crop, warp and GEMM wrappers must
+   launch exactly one device kernel a call. The GEMM gets K-major weights, as the
    int8 tail keeps them; ``torch._int_mm`` is timed on those and on
    row-major weights and the faster stands as the library call; a fill of
-   the f32 output is printed as the store floor. The two int8 kernels must
-   agree bit for bit, the seven crop and warp kernels (the fractional crop with
-   legacy and rank-1 "mxu" taps, the pooled crop, the warp with legacy,
-   "uw", "uw16" and int8 taps) within one bf16 step (they agree bit for
-   bit), "uw" and "uw16" with each other bit for bit, the fused stem,
-   MBConv block and single-block prototype within two bf16 steps of the
-   value (their 1×1 products sum in another order than the plain
-   versions'); the share of elements that differ at all is printed.
+   the f32 output is printed as the store floor. The two int8 kernels and
+   the four warps (legacy, "uw", "uw16" and int8 taps) must agree bit for
+   bit, the three crops (the fractional crop with legacy and rank-1 "mxu"
+   taps, the pooled crop) within one bf16 step (they agree bit for bit),
+   "uw" and "uw16" with each other bit for bit, the fused stem, MBConv
+   block (B4's blocks, and b6's and b7's widest, whose cout of 200 and 224
+   runs in two projection groups) and single-block prototype within two
+   bf16 steps of the value (their 1×1 products sum in another order than
+   the plain versions'); the share of elements that differ at all is
+   printed. A warp geometry phase runs every warp construction on rolls of
+   0°, 30°, 90° and 180°, a mirror, sources wholly and partly outside and a
+   whole-frame down-scale, bit for bit, and prints which tiles staged their
+   source box and which read from device memory (both must run).
 4. Checks each pipeline on the card against the same pipeline on the CPU
    (plain kernel versions, float32) on two frames with drawn faces (three
    faces of different sizes a frame for the multi-face path).
@@ -85,9 +90,10 @@ TAIL_START = 10
 BATCH, N_BATCHES = 32, 4
 PROFILE_BATCHES = (BATCH, 128)
 # Kernel vs plain version: both apply the same rounding points, so they
-# agree bit for bit; the limit is one bf16 ulp of a [128, 256) pixel. The
-# int8 products have exact s32 sums: no difference at all is allowed.
-CROP_TOL, WARP_TOL, POOL_TOL, INT8_TOL = 1.0, 1.0, 1.0, 0.0
+# agree bit for bit; the crops' limit is one bf16 ulp of a [128, 256) pixel.
+# The warps repeat their plain versions' operation order and the int8
+# products have exact s32 sums: no difference at all is allowed there.
+CROP_TOL, POOL_TOL, WARP_TOL, INT8_TOL = 1.0, 1.0, 0.0, 0.0
 # The fused kernels sum their 1x1 products in another order than the plain
 # versions: two bf16 steps of the value, |k - p| <= FUSED_TOL * max(|p|, 1).
 FUSED_TOL = 2.0 ** -7
@@ -114,11 +120,14 @@ EXPECTED = {path: {**dict.fromkeys(KERNEL_NAMES, 0), **counts} for path, counts 
 # Batch sizes each path is served at (and profiled at, in the first round).
 PATH_BATCHES = {path: (BATCH,) if path.startswith(("D", "F")) else PROFILE_BATCHES
                 for path in EXPECTED}
-# Fused-kernel shapes of phase 3: (flat B4 block index, input size, batch).
-# Blocks 1-7 at the 192² path's resolutions; block 17 at 14² is the widest
-# block of the 224² path (cexp 960).
-FUSED_BLOCKS = ((1, 96, 128), (2, 96, 128), (3, 48, 128), (6, 48, 128), (7, 24, 128),
-                (17, 14, 32))
+# Fused-kernel shapes of phase 3: (variant, flat block index, input size,
+# batch). B4 blocks 1-7 at the 192² path's resolutions; B4 block 17 at 14² is
+# the widest block of the 224² path (cexp 960); b6 block 24 (cout 200, cexp
+# 1200) and b7 block 29 (cout 224, cexp 1344) are the widest blocks the
+# fused runner plans for those variants at 224², whose projection runs in
+# two groups of output channels (seeded weights of that one block).
+FUSED_BLOCKS = (("b4", 1, 96, 128), ("b4", 2, 96, 128), ("b4", 3, 48, 128), ("b4", 6, 48, 128),
+                ("b4", 7, 24, 128), ("b4", 17, 14, 32), ("b6", 24, 14, 32), ("b7", 29, 14, 32))
 PROTO_BLOCKS = ((3, 48, 128), (12, 14, 128))
 # GEMM shapes of the tail at B = 128 (rows = 128 x H x W): largest M, a
 # mid shape, largest K. Conv shapes of the detector at the 320² canvas.
@@ -136,11 +145,11 @@ KERNEL_CLASSES = (
     ("crop_frac (port kernel)", ("crop_frac_band_kernel<0>",)),
     ("crop_frac_mxu (port kernel)", ("crop_frac_band_kernel<1>",)),
     ("crop_pool (port kernel)", ("crop_pool_kernel",)),
-    ("warp_affine_legacy (port kernel)", ("warp_bf16_kernel<0>",)),
-    ("warp_affine_uw / uw16 (port kernel)", ("warp_bf16_kernel<1>",)),
-    ("warp_affine_int8 (port kernel)", ("warp_int8_kernel",)),
+    ("warp_affine_legacy (port kernel)", ("warp_tile_kernel<0>",)),
+    ("warp_affine_uw / uw16 (port kernel)", ("warp_tile_kernel<1>",)),
+    ("warp_affine_int8 (port kernel)", ("warp_tile_kernel<2>",)),
     ("crop / warp (port kernel, construction not in the name)",
-     ("crop_frac_band_kernel", "warp_bf16_kernel")),
+     ("crop_frac_band_kernel", "warp_tile_kernel")),
     ("int8_gemm (port kernel)", ("int8_gemm_mma_kernel",)),
     ("int8_conv (port kernel)", ("int8_conv_kernel",)),
     ("fused_stem (port kernel)", ("fused_stem_kernel",)),
@@ -593,7 +602,8 @@ def check_fused(fs, fm, dev):
     rows, prototype rows)."""
     import torch.nn.functional as F
 
-    from deepfake_vit_tpu_torch.models.efficientnet import EfficientNetBackbone
+    from deepfake_vit_tpu_torch.models.efficientnet import (EfficientNetBackbone, MBConvBlock,
+                                                            block_args)
     from deepfake_vit_tpu_torch.models.layers import init_weights
     from deepfake_vit_tpu_torch.ops.image import normalize_imagenet
 
@@ -622,16 +632,20 @@ def check_fused(fs, fm, dev):
                          d, plain, b_ms, by, eager)
     del x, x_nchw, faces, got
 
-    def block_case(label, idx, h, B):
-        blk = getattr(bb, f"block_{idx}")
-        bp = fs.block_plan_from_args(bb.blocks[idx])
+    def block_case(label, variant, idx, h, B):
+        if variant == "b4":
+            blk, args = getattr(bb, f"block_{idx}"), bb.blocks[idx]
+        else:  # one block of a wider variant, seeded
+            args = block_args(variant)[idx]
+            blk = init_weights(MBConvBlock(**args), idx).to(dev).eval()
+        bp = fs.block_plan_from_args(args)
         weights = fs.fold_block_weights(blk, bp)
         x = torch.randn((B, h, h, bp.cin), generator=g).to(dev).to(torch.bfloat16)
         if label == "run_block":
             run, run_plain = (lambda: fs.run_block(bp, x, weights),
                               lambda: fs.run_block_plain(bp, x, weights))
         else:
-            ratio = bb.blocks[idx]["expand_ratio"]
+            ratio = args["expand_ratio"]
             folded = fm.fold_mbconv_params(blk, ratio)
             run, run_plain = (lambda: fm.fused_mbconv(x, folded, ratio),
                               lambda: fm.fused_mbconv_plain(x, folded, ratio))
@@ -645,12 +659,12 @@ def check_fused(fs, fm, dev):
         with torch.inference_mode():
             eager = time_ms(lambda: blk(x_nchw), iters=5, repeats=3)
         b_ms, by = block_bound(bp, B, h, weights)
-        shape = (f"B4 block {idx}, B = {B}, {h}² -> {h // bp.stride}², k{bp.kernel} "
+        shape = (f"{variant.upper()} block {idx}, B = {B}, {h}² -> {h // bp.stride}², k{bp.kernel} "
                  f"{bp.cin} -> {bp.cexp} -> {bp.cout}")
         return fused_row(label, shape, agree, t, d, plain, b_ms, by, eager)
 
     block_rows = [block_case("run_block", *case) for case in FUSED_BLOCKS]
-    proto_rows = [block_case("fused_mbconv", *case) for case in PROTO_BLOCKS]
+    proto_rows = [block_case("fused_mbconv", "b4", *case) for case in PROTO_BLOCKS]
     return stem_row, block_rows, proto_rows
 
 
@@ -679,6 +693,7 @@ def check_warp(name: str, fn, plain_fn, crop, A_win, out_size) -> dict:
     err = (got - plain_fn(crop, coeffs, out_size)).abs().max().item()
     t = time_ms(lambda: fn(crop, A_win, out_size, inverse=True))
     d = device_ms(lambda: fn(crop, A_win, out_size, inverse=True), "warp_")
+    one_launch(name, d, "warp_tile_kernel")
     plain = time_ms(lambda: plain_fn(crop, coeffs, out_size), iters=5, repeats=5)
     grid, crop_nchw = warp_grid(coeffs, out_size, S), crop.permute(0, 3, 1, 2).float().contiguous()
 
@@ -724,6 +739,86 @@ def check_crop(name: str, fn, plain_fn, args, plain_args, lib_call, nbytes: int)
                  "device_ms": d["ms"], "device_kernels": d["kernels"], "plain_ms": plain["median"],
                  "bound_ms": b_ms, "bound_by": "bytes", "library_ms": lib["median"],
                  "library_device_ms": lib_d["ms"]}
+
+
+# The warp geometry phase: (name, source side, roll in degrees, scale in
+# source pixels per output pixel, mirrored, offset of the output centre from
+# the source centre in source pixels). 128² crops go to FACE as on path A;
+# the last warps a whole 640² frame at a down-scale of 3, whose tiles'
+# source boxes outgrow the plan's budget, so the kernel reads their taps
+# from device memory.
+WARP_GEOMETRIES = (
+    ("roll 0°", WINDOW, 0.0, 0.62, False, (0.0, 0.0)),
+    ("roll 30°", WINDOW, 30.0, 0.62, False, (0.0, 0.0)),
+    ("roll 90°", WINDOW, 90.0, 0.62, False, (3.0, -2.0)),
+    ("roll 180°", WINDOW, 180.0, 0.62, False, (0.0, 0.0)),
+    ("mirror, roll 12°", WINDOW, 12.0, 0.62, True, (0.0, 0.0)),
+    ("wholly outside", WINDOW, 20.0, 0.62, False, (400.0, -300.0)),
+    ("partly outside", WINDOW, 45.0, 0.8, False, (70.0, 30.0)),
+    ("down-scale 3, whole frame", SERVING[0], 10.0, 3.0, False, (0.0, 0.0)),
+)
+
+
+def geometry_affines(cases, out_size, dev) -> torch.Tensor:
+    """dst→src affines (N, 2, 3) of WARP_GEOMETRIES entries."""
+    A = np.zeros((len(cases), 2, 3))
+    for k, (_, side, roll, scale, mirror, offset) in enumerate(cases):
+        th = np.deg2rad(roll)
+        R = scale * np.asarray([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        if mirror:
+            R[:, 0] *= -1.0
+        c_out = np.asarray([(out_size[1] - 1) / 2, (out_size[0] - 1) / 2])
+        A[k, :, :2] = R
+        A[k, :, 2] = (side - 1) / 2 + np.asarray(offset) - R @ c_out
+    return torch.as_tensor(A, dtype=torch.float32, device=dev)
+
+
+def check_warp_geometry(wk, dev) -> dict:
+    """Every warp construction on WARP_GEOMETRIES, bit for bit against its
+    plain version; the branch each tile took, reported by the kernel, held
+    to the host's prediction (``warp_tile_box``). Fails unless both the
+    staged and the device-memory branch ran."""
+    g = torch.Generator(device="cpu").manual_seed(12)
+    rows, branch_total = {}, {1: 0, 2: 0}
+    for side in sorted({c[1] for c in WARP_GEOMETRIES}):
+        cases = [c for c in WARP_GEOMETRIES if c[1] == side]
+        img = (torch.rand((len(cases), side, side, 3), generator=g) * 255).to(torch.bfloat16).to(dev)
+        A = geometry_affines(cases, FACE, dev)
+        coeffs = A.reshape(-1, 6)
+        box = wk.warp_tile_box(coeffs, FACE, (side, side), 3)
+        predicted = torch.where(box.staged, 1, 2).to(torch.int32)
+        for k, case in enumerate(cases):
+            staged = int(box.staged[k].sum().item())
+            print(f"warp geometry {case[0]!r} ({side}² source -> {FACE[0]}²): {staged} tiles "
+                  f"staged, {box.staged[k].numel() - staged} read from device memory; largest "
+                  f"box {int(box.box_bytes[k].max().item())} bytes (budget "
+                  f"{wk.warp_plan(3).box_budget})")
+        for name in wk.WARP_KERNELS:
+            got, branch = wk.warp_tile_branches(name, img, A, FACE, inverse=True)
+            torch.cuda.synchronize()
+            plain = {"legacy": wk.warp_affine_legacy_plain, "int8": wk.warp_affine_int8_plain}.get(
+                name, wk.warp_affine_uw_plain)
+            want = plain(img, coeffs, FACE)
+            err = (got - want).abs().max().item()
+            if not torch.equal(got, want):
+                fail(f"{name} on the warp geometries of {side}² sources differs from its plain "
+                     f"version: max abs {err}")
+            if not torch.equal(branch, predicted):
+                fail(f"{name}: the tiles' branches differ from warp_tile_box's prediction")
+            for k, case in enumerate(cases):
+                if case[0] == "wholly outside" and bool(got[k].any()):
+                    fail(f"{name}: a warp from wholly outside the source is not all zeros")
+            for b in (1, 2):
+                branch_total[b] += int((branch == b).sum().item())
+            rows[f"{name}, {side}² sources"] = {"max_abs_err": err,
+                                                "tiles_staged": int((branch == 1).sum().item()),
+                                                "tiles_device_memory": int((branch == 2).sum().item())}
+            print(f"warp geometry, {name}, {side}² sources: max_abs {err} against the plain "
+                  f"version; tiles staged {rows[f'{name}, {side}² sources']['tiles_staged']}, "
+                  f"from device memory {rows[f'{name}, {side}² sources']['tiles_device_memory']}")
+    if not branch_total[1] or not branch_total[2]:
+        fail(f"the warp geometry phase did not take both branches: {branch_total}")
+    return rows
 
 
 def check_rank1_warps(wk, frames_flat, dev):
@@ -965,6 +1060,7 @@ def main() -> None:
     int8_row.pop("out")
     del mxu_k, crop_k
     rank1_rows = check_rank1_warps(wk, frames_flat, dev)
+    geometry_rows = check_warp_geometry(wk, dev)
     pool_row = check_crop_pool(wk, frames_flat, A_inv, dev)
     del frames, frames_flat
     gemm_rows = check_int8_gemm(ik, dev)
@@ -1128,6 +1224,7 @@ def main() -> None:
              "warp_rows": {"warp_affine_legacy": legacy_row, "warp_affine_int8": int8_row,
                            **rank1_rows},
              "bound_bytes": {"crop_frac": crop_bytes},
+             "warp_geometry": geometry_rows,
              "crop_pool": pool_row, "card_vs_cpu": card_vs_cpu_err, "paths": paths,
              "device_launches_per_fused_block": fs.LAUNCHES_PER_BLOCK,
              "torch": torch.__version__, "cuda": torch.version.cuda}

@@ -38,7 +38,10 @@
 // on the halo ((8+k-1)^2 input pixels at stride 1, (14+k)^2 at stride 2),
 // the depthwise reads its neighbours from shared memory, and the projection
 // accumulates over the chunks in registers (pixel x 4 interleaved output
-// channels per thread). The two 1x1 products are f32 FMAs over bf16 values
+// channels per thread). Any cout is taken: the projection's weights and
+// output tile are staged for one group of at most 192 output channels at a
+// time (b6's 200 and b7's 224 go in two), while the chunk's d stays in
+// shared memory across the groups. The two 1x1 products are f32 FMAs over bf16 values
 // widened to f32 when they are staged in shared memory: bf16 x bf16 is exact
 // in f32, so only the order of a sum differs from the plain PyTorch version
 // in ops/fused_stages.py. The
@@ -85,6 +88,7 @@ constexpr int PB = 4;                // halo pixels per warp step of the expand
 constexpr int DROW = NPIX + 1;       // padded row of the scaled-d tile (conflict-free)
 constexpr int XPAD = 4;              // pad of an input-tile row: rows stay 16-byte aligned
 constexpr int MAX_SMEM = 232448;     // 227 KB: the most one block can ask for
+constexpr int MAX_GROUP = 192;       // output channels of a projection group, at most
 
 __device__ __forceinline__ float silu_f(float v) { return v / (1.0f + expf(-v)); }
 __device__ __forceinline__ float sigmoid_f(float v) { return 1.0f / (1.0f + expf(-v)); }
@@ -182,6 +186,8 @@ struct BlockArgs {
   bf16* out;            // (B, Ho, Wo, cout), written by pass 2
   int H, W, Ho, Wo, cin, cexp, cout, k, stride, pad, tin, tiles_x, tiles;
   int has_expand, residual;
+  int gsize;  // output channels of a projection group (a multiple of 8, at most 192)
+  int sweep;  // output channels a pass-2 sweep accumulates in registers (4 * NJ at most)
 };
 
 // Byte offsets of the shared-memory regions, each 16-byte aligned. Inputs,
@@ -208,16 +214,36 @@ SmemLayout smem_layout(const BlockArgs& a, int pass) {
   s.d = s.wproj = s.out = off;
   if (pass == 2) {
     s.d = off;     off = align16(off + (size_t)CH * DROW * 4);
-    s.wproj = off; off = align16(off + (size_t)a.cout * CH * 4);
-    s.out = off;   off = align16(off + (size_t)NPIX * (a.cout + 2) * 2);
+    s.wproj = off; off = align16(off + (size_t)a.gsize * CH * 4);
+    s.out = off;   off = align16(off + (size_t)NPIX * (a.gsize + 2) * 2);
   }
   s.total = off;
   return s;
 }
 
+// Stage the projection weights of output channels [g0, g0 + gn) for the
+// chunk's expanded channels [c0, c0 + cn), widened to f32: wprojS[co - g0][c].
+__device__ __forceinline__ void stage_wproj(float* wprojS, const bf16* w_proj, int cexp, int g0,
+                                            int gn, int c0, int cn) {
+  for (int idx = threadIdx.x; idx < gn * CH; idx += THREADS) {
+    const int c = idx & (CH - 1), co = idx / CH;
+    wprojS[idx] = c < cn ? __bfloat162float(w_proj[(size_t)(g0 + co) * cexp + c0 + c]) : 0.0f;
+  }
+}
+
 // PASS 1: per-tile channel sums of d into a.partials. PASS 2: the block's
 // output tile. NJ: output channels per thread of the projection (4 * NJ >=
-// cout). PROTO: the prototype's rounding points.
+// a.sweep). PROTO: the prototype's rounding points.
+//
+// Pass 2 accumulates the projection of a sweep of output channels in
+// registers (thread: pixel pp, channels s0 + cg + 4j). A sweep is all of
+// cout up to 256 channels (beyond, one group a sweep, and e and d are
+// recomputed for each). Within a sweep the output channels go in groups of
+// at most 192 (a.gsize): only one group's projection weights and output
+// tile are in shared memory at a time, while the chunk's scaled d stays
+// there across the groups. Each output channel still sums over cexp in
+// chunk order, so the grouping changes no bit; one group (cout <= 192) is
+// the single-group code path.
 template <int PASS, int NJ, bool PROTO>
 __global__ void __launch_bounds__(THREADS)
 fused_block_pass_kernel(BlockArgs a, SmemLayout L) {
@@ -232,8 +258,8 @@ fused_block_pass_kernel(BlockArgs a, SmemLayout L) {
   float* redS = reinterpret_cast<float*>(block_smem + L.red);      // [NWARPS][CH]
   unsigned char* insideS = block_smem + L.inside;                  // [npin]: pixel is on the image
   float* dS = reinterpret_cast<float*>(block_smem + L.d);          // [CH][DROW]
-  float* wprojS = reinterpret_cast<float*>(block_smem + L.wproj);  // [cout][CH]
-  bf16* outS = reinterpret_cast<bf16*>(block_smem + L.out);        // [NPIX][cout + 2]
+  float* wprojS = reinterpret_cast<float*>(block_smem + L.wproj);  // [gsize][CH]
+  bf16* outS = reinterpret_cast<bf16*>(block_smem + L.out);        // [NPIX][gsize + 2]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tile = blockIdx.x, bi = blockIdx.y;
@@ -259,181 +285,195 @@ fused_block_pass_kernel(BlockArgs a, SmemLayout L) {
     }
   }
 
-  float acc[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) acc[j] = 0.0f;
   const int pp = tid & (NPIX - 1);  // projection: this thread's pixel ...
-  const int cg = tid >> 6;          // ... and its output channels cg + 4 j
-
-  for (int c0 = 0; c0 < a.cexp; c0 += CH) {
-    const int cn = min(CH, a.cexp - c0);
-    const bool live = lane < cn;
-
-    // 2. This chunk's weights, widened to f32.
-    if (a.has_expand) {
-      const int nq = a.cin / 8;
-      const uint4* wsrc = reinterpret_cast<const uint4*>(a.w_exp + (size_t)c0 * a.cin);
-      float* w = reinterpret_cast<float*>(wexpS);
-      for (int idx = tid; idx < CH * nq; idx += THREADS) {
-        const int c = idx & (CH - 1), kq = idx / CH;
-        const uint4 v = c < cn ? wsrc[(size_t)c * nq + kq] : make_uint4(0u, 0u, 0u, 0u);
-        *reinterpret_cast<float4*>(w + ((size_t)(2 * kq) * CH + c) * 4) =
-            make_float4(lo_f(v.x), hi_f(v.x), lo_f(v.y), hi_f(v.y));
-        *reinterpret_cast<float4*>(w + ((size_t)(2 * kq + 1) * CH + c) * 4) =
-            make_float4(lo_f(v.z), hi_f(v.z), lo_f(v.w), hi_f(v.w));
-      }
-    }
-    for (int idx = tid; idx < k * k * CH; idx += THREADS) {
-      const int c = idx & (CH - 1), t = idx / CH;
-      tapsS[idx] = c < cn ? a.taps[(size_t)t * a.cexp + c0 + c] : 0.0f;
-    }
-    if (tid < CH) {
-      const bool ok = tid < cn;
-      bexpS[tid] = (ok && a.has_expand) ? a.b_exp[c0 + tid] : 0.0f;
-      bdwS[tid] = ok ? a.b_dw[c0 + tid] : 0.0f;
-      seS[tid] = (ok && PASS == 2) ? a.se[(size_t)bi * a.cexp + c0 + tid] : 0.0f;
-    }
-    if (PASS == 2) {
-      for (int idx = tid; idx < a.cout * CH; idx += THREADS) {
-        const int c = idx & (CH - 1), co = idx / CH;
-        wprojS[idx] = c < cn ? __bfloat162float(a.w_proj[(size_t)co * a.cexp + c0 + c]) : 0.0f;
-      }
-    }
-    __syncthreads();
-
-    // 3. e on the haloed tile: lane = channel, each warp PB pixels a step.
-    if (a.has_expand) {
-      // Four input channels a step: one 16-byte load of this lane's weights
-      // and one 16-byte broadcast load per pixel feed 4 FMAs per pixel,
-      // summed in channel order.
-      const int n4 = a.cin / 4;
-      const float4* xS4 = reinterpret_cast<const float4*>(xS);
-      const int xrow4 = xrow / 4;
-      for (int p0 = warp * PB; p0 < npin; p0 += NWARPS * PB) {
-        float ae[PB];
-        const float4* xr[PB];
+  const int cg = tid >> 6;          // ... and its output channels s0 + cg + 4 j
+  const int sweeps_end = PASS == 2 ? a.cout : 1;  // pass 1 makes one trip
+  for (int s0 = 0; s0 < sweeps_end; s0 += a.sweep) {
+    const int send = min(s0 + a.sweep, a.cout);  // this sweep's channels: [s0, send)
+    float acc[NJ];
 #pragma unroll
-        for (int i = 0; i < PB; ++i) {
-          ae[i] = 0.0f;
-          xr[i] = xS4 + (size_t)min(p0 + i, npin - 1) * xrow4;
+    for (int j = 0; j < NJ; ++j) acc[j] = 0.0f;
+
+    for (int c0 = 0; c0 < a.cexp; c0 += CH) {
+      const int cn = min(CH, a.cexp - c0);
+      const bool live = lane < cn;
+
+      // 2. This chunk's weights, widened to f32.
+      if (a.has_expand) {
+        const int nq = a.cin / 8;
+        const uint4* wsrc = reinterpret_cast<const uint4*>(a.w_exp + (size_t)c0 * a.cin);
+        float* w = reinterpret_cast<float*>(wexpS);
+        for (int idx = tid; idx < CH * nq; idx += THREADS) {
+          const int c = idx & (CH - 1), kq = idx / CH;
+          const uint4 v = c < cn ? wsrc[(size_t)c * nq + kq] : make_uint4(0u, 0u, 0u, 0u);
+          *reinterpret_cast<float4*>(w + ((size_t)(2 * kq) * CH + c) * 4) =
+              make_float4(lo_f(v.x), hi_f(v.x), lo_f(v.y), hi_f(v.y));
+          *reinterpret_cast<float4*>(w + ((size_t)(2 * kq + 1) * CH + c) * 4) =
+              make_float4(lo_f(v.z), hi_f(v.z), lo_f(v.w), hi_f(v.w));
         }
-        for (int k4 = 0; k4 < n4; ++k4) {
-          const float4 wv = wexpS[k4 * CH + lane];
+      }
+      for (int idx = tid; idx < k * k * CH; idx += THREADS) {
+        const int c = idx & (CH - 1), t = idx / CH;
+        tapsS[idx] = c < cn ? a.taps[(size_t)t * a.cexp + c0 + c] : 0.0f;
+      }
+      if (tid < CH) {
+        const bool ok = tid < cn;
+        bexpS[tid] = (ok && a.has_expand) ? a.b_exp[c0 + tid] : 0.0f;
+        bdwS[tid] = ok ? a.b_dw[c0 + tid] : 0.0f;
+        seS[tid] = (ok && PASS == 2) ? a.se[(size_t)bi * a.cexp + c0 + tid] : 0.0f;
+      }
+      if (PASS == 2) stage_wproj(wprojS, a.w_proj, a.cexp, s0, min(a.gsize, send - s0), c0, cn);
+      __syncthreads();
+
+      // 3. e on the haloed tile: lane = channel, each warp PB pixels a step.
+      if (a.has_expand) {
+        // Four input channels a step: one 16-byte load of this lane's weights
+        // and one 16-byte broadcast load per pixel feed 4 FMAs per pixel,
+        // summed in channel order.
+        const int n4 = a.cin / 4;
+        const float4* xS4 = reinterpret_cast<const float4*>(xS);
+        const int xrow4 = xrow / 4;
+        for (int p0 = warp * PB; p0 < npin; p0 += NWARPS * PB) {
+          float ae[PB];
+          const float4* xr[PB];
 #pragma unroll
           for (int i = 0; i < PB; ++i) {
-            const float4 xv = xr[i][k4];
-            ae[i] = fmaf(wv.x, xv.x, ae[i]);
-            ae[i] = fmaf(wv.y, xv.y, ae[i]);
-            ae[i] = fmaf(wv.z, xv.z, ae[i]);
-            ae[i] = fmaf(wv.w, xv.w, ae[i]);
+            ae[i] = 0.0f;
+            xr[i] = xS4 + (size_t)min(p0 + i, npin - 1) * xrow4;
+          }
+          for (int k4 = 0; k4 < n4; ++k4) {
+            const float4 wv = wexpS[k4 * CH + lane];
+#pragma unroll
+            for (int i = 0; i < PB; ++i) {
+              const float4 xv = xr[i][k4];
+              ae[i] = fmaf(wv.x, xv.x, ae[i]);
+              ae[i] = fmaf(wv.y, xv.y, ae[i]);
+              ae[i] = fmaf(wv.z, xv.z, ae[i]);
+              ae[i] = fmaf(wv.w, xv.w, ae[i]);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < PB; ++i) {
+            const int p = p0 + i;
+            if (p < npin) {
+              float v = (insideS[p] && live) ? silu_f(ae[i] + bexpS[lane]) : 0.0f;
+              if (!PROTO) v = bf16_round(v);
+              eS[(size_t)p * CH + lane] = v;
+            }
+          }
+        }
+      } else {
+        for (int idx = tid; idx < npin * CH; idx += THREADS) {
+          const int c = idx & (CH - 1), p = idx / CH;
+          eS[idx] = c < cn ? xS[(size_t)p * xrow + c0 + c] : 0.0f;
+        }
+      }
+      __syncthreads();
+
+      // 4. Depthwise + SiLU: lane = channel, warp = tile row. Each tap is
+      //    loaded once and applied to the row's 8 outputs; every output sums
+      //    its taps in (dy, dx) order.
+      float dsum = 0.0f;
+      {
+        const int yo = warp;
+        float ad[TILE];
+#pragma unroll
+        for (int xo = 0; xo < TILE; ++xo) ad[xo] = 0.0f;
+        for (int dy = 0; dy < k; ++dy) {
+          const float* erow = eS + (size_t)(S * yo + dy) * tin * CH + lane;
+          for (int dx = 0; dx < k; ++dx) {
+            const float tap = tapsS[(dy * k + dx) * CH + lane];
+#pragma unroll
+            for (int xo = 0; xo < TILE; ++xo)
+              ad[xo] = __fadd_rn(ad[xo], __fmul_rn(erow[(S * xo + dx) * CH], tap));
           }
         }
 #pragma unroll
-        for (int i = 0; i < PB; ++i) {
-          const int p = p0 + i;
-          if (p < npin) {
-            float v = (insideS[p] && live) ? silu_f(ae[i] + bexpS[lane]) : 0.0f;
-            if (!PROTO) v = bf16_round(v);
-            eS[(size_t)p * CH + lane] = v;
+        for (int xo = 0; xo < TILE; ++xo) {
+          const bool valid = (oy0 + yo < a.Ho) && (ox0 + xo < a.Wo) && live;
+          float d = silu_f(ad[xo] + bdwS[lane]);
+          float db = bf16_round(d);
+          if (!valid) { d = 0.0f; db = 0.0f; }
+          dsum += PROTO ? db : d;
+          if (PASS == 2) dS[lane * DROW + yo * TILE + xo] = bf16_round(db * seS[lane]);
+        }
+      }
+
+      if (PASS == 1) {
+        // The tile's channel sums, warps added in a fixed order.
+        redS[warp * CH + lane] = dsum;
+        __syncthreads();
+        if (warp == 0 && live) {
+          float s = 0.0f;
+#pragma unroll
+          for (int w = 0; w < NWARPS; ++w) s += redS[w * CH + lane];
+          a.partials[((size_t)bi * a.tiles + tile) * a.cexp + c0 + lane] = s;
+        }
+      } else {
+        __syncthreads();
+        // 5. Projection, accumulated over the chunks, group by group. Four
+        //    expanded channels a step (cn is a multiple of 8): four values of
+        //    d and one 16-byte broadcast load of weights per output channel.
+        for (int g0 = s0;;) {
+          const int gn = min(a.gsize, send - g0);
+          const int jlo = (g0 - s0) / 4, jhi = (g0 - s0 + gn) / 4;  // this group's j
+          for (int c = 0; c < cn; c += 4) {
+            const float d0 = dS[(c + 0) * DROW + pp];
+            const float d1 = dS[(c + 1) * DROW + pp];
+            const float d2 = dS[(c + 2) * DROW + pp];
+            const float d3 = dS[(c + 3) * DROW + pp];
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+              if (j >= jlo && j < jhi) {
+                const int co = s0 + cg + 4 * j;
+                const float4 wv = *reinterpret_cast<const float4*>(wprojS + (co - g0) * CH + c);
+                acc[j] = fmaf(wv.x, d0, acc[j]);
+                acc[j] = fmaf(wv.y, d1, acc[j]);
+                acc[j] = fmaf(wv.z, d2, acc[j]);
+                acc[j] = fmaf(wv.w, d3, acc[j]);
+              }
+            }
           }
+          g0 += gn;
+          if (g0 >= send) break;
+          __syncthreads();  // every thread is done with the previous group's weights
+          stage_wproj(wprojS, a.w_proj, a.cexp, g0, min(a.gsize, send - g0), c0, cn);
+          __syncthreads();
         }
       }
-    } else {
-      for (int idx = tid; idx < npin * CH; idx += THREADS) {
-        const int c = idx & (CH - 1), p = idx / CH;
-        eS[idx] = c < cn ? xS[(size_t)p * xrow + c0 + c] : 0.0f;
-      }
-    }
-    __syncthreads();
-
-    // 4. Depthwise + SiLU: lane = channel, warp = tile row. Each tap is
-    //    loaded once and applied to the row's 8 outputs; every output sums
-    //    its taps in (dy, dx) order.
-    float dsum = 0.0f;
-    {
-      const int yo = warp;
-      float ad[TILE];
-#pragma unroll
-      for (int xo = 0; xo < TILE; ++xo) ad[xo] = 0.0f;
-      for (int dy = 0; dy < k; ++dy) {
-        const float* erow = eS + (size_t)(S * yo + dy) * tin * CH + lane;
-        for (int dx = 0; dx < k; ++dx) {
-          const float tap = tapsS[(dy * k + dx) * CH + lane];
-#pragma unroll
-          for (int xo = 0; xo < TILE; ++xo)
-            ad[xo] = __fadd_rn(ad[xo], __fmul_rn(erow[(S * xo + dx) * CH], tap));
-        }
-      }
-#pragma unroll
-      for (int xo = 0; xo < TILE; ++xo) {
-        const bool valid = (oy0 + yo < a.Ho) && (ox0 + xo < a.Wo) && live;
-        float d = silu_f(ad[xo] + bdwS[lane]);
-        float db = bf16_round(d);
-        if (!valid) { d = 0.0f; db = 0.0f; }
-        dsum += PROTO ? db : d;
-        if (PASS == 2) dS[lane * DROW + yo * TILE + xo] = bf16_round(db * seS[lane]);
-      }
+      __syncthreads();  // the next chunk overwrites the staged weights, e and d
     }
 
-    if (PASS == 1) {
-      // The tile's channel sums, warps added in a fixed order.
-      redS[warp * CH + lane] = dsum;
-      __syncthreads();
-      if (warp == 0 && live) {
-        float s = 0.0f;
-#pragma unroll
-        for (int w = 0; w < NWARPS; ++w) s += redS[w * CH + lane];
-        a.partials[((size_t)bi * a.tiles + tile) * a.cexp + c0 + lane] = s;
-      }
-    } else {
-      __syncthreads();
-      // 5. Projection, accumulated over the chunks. Four expanded channels
-      //    a step (cn is a multiple of 8): four values of d and one 16-byte
-      //    broadcast load of weights per output channel.
-      for (int c = 0; c < cn; c += 4) {
-        const float d0 = dS[(c + 0) * DROW + pp];
-        const float d1 = dS[(c + 1) * DROW + pp];
-        const float d2 = dS[(c + 2) * DROW + pp];
-        const float d3 = dS[(c + 3) * DROW + pp];
+    if (PASS == 2) {
+      // 6. + bias (+ residual), round, and write the tile group by group
+      //    through shared memory so that device memory sees 16-byte stores.
+      const int yo = pp / TILE, xo = pp % TILE;
+      for (int g0 = s0; g0 < send; g0 += a.gsize) {
+        const int gn = min(a.gsize, send - g0);
+        const int jlo = (g0 - s0) / 4, jhi = (g0 - s0 + gn) / 4;
+        const int orow = gn + 2;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          const int co = cg + 4 * j;
-          if (co < a.cout) {
-            const float4 wv = *reinterpret_cast<const float4*>(wprojS + co * CH + c);
-            acc[j] = fmaf(wv.x, d0, acc[j]);
-            acc[j] = fmaf(wv.y, d1, acc[j]);
-            acc[j] = fmaf(wv.z, d2, acc[j]);
-            acc[j] = fmaf(wv.w, d3, acc[j]);
+          if (j >= jlo && j < jhi) {
+            const int co = s0 + cg + 4 * j;
+            float v = acc[j] + a.b_proj[co];
+            if (a.residual) v += xS[((size_t)(yo + a.pad) * tin + xo + a.pad) * xrow + co];
+            outS[pp * orow + co - g0] = __float2bfloat16_rn(v);
           }
         }
-      }
-    }
-    __syncthreads();  // the next chunk overwrites the staged weights, e and d
-  }
-
-  if (PASS == 2) {
-    // 6. + bias (+ residual), round, and write the tile through shared
-    //    memory so that device memory sees 16-byte stores.
-    const int yo = pp / TILE, xo = pp % TILE;
-    const int orow = a.cout + 2;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int co = cg + 4 * j;
-      if (co < a.cout) {
-        float v = acc[j] + a.b_proj[co];
-        if (a.residual) v += xS[((size_t)(yo + a.pad) * tin + xo + a.pad) * xrow + co];
-        outS[pp * orow + co] = __float2bfloat16_rn(v);
-      }
-    }
-    __syncthreads();
-    const int vpp = a.cout / 8;
-    for (int idx = tid; idx < NPIX * vpp; idx += THREADS) {
-      const int p = idx / vpp, v = idx - p * vpp;
-      const int oy = oy0 + p / TILE, ox = ox0 + p % TILE;
-      if (oy < a.Ho && ox < a.Wo) {
-        const uint32_t* s = reinterpret_cast<const uint32_t*>(outS + (size_t)p * orow + v * 8);
-        const uint4 val = make_uint4(s[0], s[1], s[2], s[3]);
-        *reinterpret_cast<uint4*>(a.out + (((size_t)bi * a.Ho + oy) * a.Wo + ox) * a.cout + v * 8) = val;
+        __syncthreads();
+        const int vpp = gn / 8;
+        for (int idx = tid; idx < NPIX * vpp; idx += THREADS) {
+          const int p = idx / vpp, v = idx - p * vpp;
+          const int oy = oy0 + p / TILE, ox = ox0 + p % TILE;
+          if (oy < a.Ho && ox < a.Wo) {
+            const uint32_t* s = reinterpret_cast<const uint32_t*>(outS + (size_t)p * orow + v * 8);
+            const uint4 val = make_uint4(s[0], s[1], s[2], s[3]);
+            *reinterpret_cast<uint4*>(a.out + (((size_t)bi * a.Ho + oy) * a.Wo + ox) * a.cout +
+                                      g0 + v * 8) = val;
+          }
+        }
+        __syncthreads();  // the next group rewrites the output tile
       }
     }
   }
@@ -497,8 +537,14 @@ cudaError_t run_block(BlockArgs a, const float* w_se1, const float* b_se1, const
   a.tiles = a.tiles_x * ((a.Ho + TILE - 1) / TILE);
   a.se = se;
   if ((a.k != 3 && a.k != 5) || (a.stride != 1 && a.stride != 2) || a.cin % 8 || a.cexp % 8 ||
-      a.cout % 8 || a.cout > 192 || (a.stride == 2 && (a.H % 2 || a.W % 2)) || B < 1 || B > 65535)
+      a.cout % 8 || a.cout < 8 || (a.stride == 2 && (a.H % 2 || a.W % 2)) || B < 1 || B > 65535)
     return cudaErrorInvalidValue;
+  // Projection groups of at most MAX_GROUP channels, as even as multiples of
+  // 8 allow (200 -> 104 + 96, 224 -> 112 + 112); one sweep up to 4 * 64
+  // channels, else one group a sweep (block_smem_bytes mirrors this).
+  const int groups = (a.cout + MAX_GROUP - 1) / MAX_GROUP;
+  a.gsize = ((a.cout + groups - 1) / groups + 7) / 8 * 8;
+  a.sweep = a.cout <= 4 * 64 ? a.cout : a.gsize;
 
   cudaError_t err = launch_pass<1, 1, PROTO>(a, B, st);
   if (err != cudaSuccess) return err;
@@ -506,10 +552,11 @@ cudaError_t run_block(BlockArgs a, const float* w_se1, const float* b_se1, const
       a.partials, w_se1, b_se1, w_se2, b_se2, se, a.tiles, a.cexp, cse, a.Ho * a.Wo);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (a.cout <= 32) return launch_pass<2, 8, PROTO>(a, B, st);
-  if (a.cout <= 64) return launch_pass<2, 16, PROTO>(a, B, st);
-  if (a.cout <= 128) return launch_pass<2, 32, PROTO>(a, B, st);
-  return launch_pass<2, 48, PROTO>(a, B, st);
+  if (a.sweep <= 32) return launch_pass<2, 8, PROTO>(a, B, st);
+  if (a.sweep <= 64) return launch_pass<2, 16, PROTO>(a, B, st);
+  if (a.sweep <= 128) return launch_pass<2, 32, PROTO>(a, B, st);
+  if (a.sweep <= 192) return launch_pass<2, 48, PROTO>(a, B, st);
+  return launch_pass<2, 64, PROTO>(a, B, st);
 }
 
 BlockArgs block_args(const void* x, const void* w_exp, const void* b_exp, const void* taps,

@@ -21,15 +21,17 @@
 // byte. Nothing is written back but the output: no strip copy, no tap
 // planes. The fractional crop stages the source rows a band of output rows
 // needs in shared memory with 16-byte cp.async copies and resamples from
-// there (see crop_frac_band_kernel); the pooled crop and the warps gather
-// straight from device memory in one pass and keep every intermediate in
-// registers.
+// there (see crop_frac_band_kernel); the warps stage the source box of a 2-D
+// tile of output pixels the same way and write the tile with 16-byte stores
+// (see warp_tile_kernel); the pooled crop gathers straight from device
+// memory in one pass and keeps every intermediate in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <climits>
+#include <cmath>
 
 namespace {
 
@@ -48,11 +50,12 @@ __device__ __forceinline__ float tri_u_bf16(float a, float b) {
   return round_bf16(fmaxf(0.0f, __fsub_rn(1.0f, fabsf(__fsub_rn(u, 1.0f)))));
 }
 
-// Tap constructions, a compile-time parameter of the crop and warp kernels.
-enum Taps { kLegacy = 0, kRank1 = 1 };
+// Tap constructions, a compile-time parameter of the crop and warp kernels
+// (kInt8: the warp's q7 vertical taps; its horizontal taps are rank-1).
+enum Taps { kLegacy = 0, kRank1 = 1, kInt8 = 2 };
 
-// Weight of integer tap t for coordinate s. Rank-1: U = s + (1 - t), the
-// order of the TPU kernels' U = s * 1 + (1 - t) * 1.
+// Weight of integer tap t for coordinate s. Rank-1 (every construction but
+// kLegacy): U = s + (1 - t), the order of the TPU kernels' U = s * 1 + (1 - t) * 1.
 template <int kTaps>
 __device__ __forceinline__ float tap_bf16(float s, int t) {
   return kTaps == kLegacy ? tri_bf16(s, (float)t) : tri_u_bf16(s, (float)(1 - t));
@@ -363,26 +366,69 @@ __global__ void crop_pool_kernel(const __nv_bfloat16* __restrict__ frames,
 }
 
 // ---------------------------------------------------------------------------
-// warp_affine_legacy
+// warp_affine_legacy, warp_affine_uw / uw16, warp_affine_int8
 //
 // Replaces deepfake_vit_tpu/ops/pallas/warp_kernel.py::_warp_kernel
-// (launcher warp_affine_pallas, construction="legacy"): cv2.warpAffine,
-// bilinear, border 0. The TPU kernel builds dense V/H tap planes and runs a
-// channel-stacked matmul over the whole source height; here one thread
-// computes one output pixel for all C channels from its 2x2 source taps.
+// (launcher warp_affine_pallas): cv2.warpAffine, bilinear, border 0, bf16
+// (N, Hs, Ws, C) source, f32 (N, Ho, Wo, C) output. The TPU kernel builds
+// dense V/H tap planes and runs a channel-stacked matmul over the whole
+// source height; here each output pixel reads its 2x2 source taps. One
+// template over the three tap constructions of the TPU kernel:
 //
-// kTaps == kRank1 replaces the "uw" and "uw16" constructions of the same
-// TPU kernel, which compute one function: both round the rank-1 tap plane
-// to bf16 (warp_kernel.py:165, :173). Their tap is
-// bf16(max(0, 1 - |(s + (1 - t)) - 1|)). The TPU kernel pads the source to
-// 16 rows and columns of zero pixels; a zero pixel adds nothing to any sum,
-// so here taps outside the source are dropped instead.
+//   kLegacy ("legacy"): taps bf16(max(0, 1 - |s - t|));
+//   kRank1 ("uw" and "uw16", one function: both round the rank-1 tap plane
+//     to bf16, warp_kernel.py:165, :173): bf16(max(0, 1 - |(s + (1 - t)) - 1|));
+//   kInt8 ("int8", :160-207): q7 vertical taps on shifted-s8 pixels, rank-1
+//     bf16 horizontal taps:
+//       q[t, s] = clip(rint(px) - 128, -128, 127)            (half to even)
+//       V[t]    = trunc(max(0.5, 127.5 - |U - 127.5|)),
+//                 U = 127*sy + (127*(1 - t) + 0.5)   (product and sum rounded)
+//       P[s]    = bf16(sum_t q[t, s] * V[t])         (exact s32 sum, then bf16)
+//       out     = (sum_s f32(bf16(P[s] * H[s])) + (128 * sum_t V) * sum_s H)
+//                 * f32(1/127)
+//     the shift coming back through the separable correction; pixels are
+//     quantized as they are read from the staged box (no s8 copy of the
+//     source is written).
+// Per output pixel (i, j): sx = a*j + b*i + c, sy = d*j + e*i + f (rounded
+// products and sums in that order); for the bf16 constructions
+// P[s] = bf16(sum_t V[t] * px[t, s]) and out = sum_s f32(bf16(P[s] * H[s])).
+// The TPU kernel pads the source with zero pixels (16 or 32 rows and
+// columns, whose int8 taps it zeroes); a zero pixel adds nothing to any sum,
+// so here taps outside the source are dropped and the sums of V and H run
+// over the taps inside it.
 //
-// Bound: bytes. It must read the crop pixels that the output points'
-// nonzero-weight taps touch (bf16, at most the whole crop) and write the
-// (N, Ho, Wo, C) f32 output once; at the H100's 3.35 TB/s that is the floor
-// chip_smoke.py reports as bound_ms.
+// Bound: bytes. It must read the source pixels that the output points'
+// nonzero-weight taps touch (bf16) and write the f32 output once; at the
+// H100's 3.35 TB/s that is the floor chip_smoke.py reports as bound_ms. At
+// C = 3 the output is most of it (56.6 MB for 128 faces at 192^2).
+//
+// Design: one block per (face, 32 x tile_h tile of output pixels), from a
+// 3-D grid (tile column, tile row, face): no division finds them.
+//   1. The tile's source box: coordinates are monotone in i and j (rounded
+//      products and sums are monotone), so the extremes of sx and sy over
+//      the tile lie at its four corners; the box is floor(min) .. floor(max)
+//      + 1, clipped to the source. It stays small at any rotation of a
+//      similarity warp (a band of whole output rows would not: it grows
+//      with Wo * |sin(roll)|).
+//   2. If the box fits the plan's budget, it is staged in shared memory,
+//      each source pixel read once, widened to f32 (kInt8: quantized) and
+//      stored as ceil(C / 4) float4s; otherwise (a large down-scale, as
+//      warp_affine_auto on a whole frame can ask for) the taps are read
+//      from device memory with the same arithmetic.
+//   3. One thread per output pixel (a warp per tile row) computes its
+//      coordinates and its four tap weights once, reads each tap's
+//      channels with one 16-byte load a four, and resamples them into a
+//      shared-memory copy of the output tile, rounding two values to bf16
+//      in one conversion.
+//   4. Each warp writes whole tile rows (32 * C contiguous floats) with
+//      16-byte stores; a ragged tile or an output row not 16-byte aligned
+//      stores its partial words element by element.
 // ---------------------------------------------------------------------------
+constexpr int kWarpThreads = 256;
+constexpr int kWarpWarps = kWarpThreads / 32;
+constexpr int kWarpTileW = 32;  // output columns of a tile: one warp's pixels
+constexpr int kStageRows = 4;   // box rows a warp loads before it stores them
+constexpr int kTileRowsPerPass = kWarpThreads / kWarpTileW;  // tile rows the block resamples at once
 
 // dst -> src coordinates of output pixel (i, j): a*j + b*i + c, in the TPU
 // kernel's order.
@@ -392,133 +438,282 @@ __device__ __forceinline__ void warp_coords(const float* A, int i, int j, float*
   *sy = __fadd_rn(__fadd_rn(__fmul_rn(A[3], (float)j), __fmul_rn(A[4], (float)i)), A[5]);
 }
 
-template <int kTaps>
-__global__ void warp_bf16_kernel(const __nv_bfloat16* __restrict__ img,
-                                   const float* __restrict__ coef,
-                                   float* __restrict__ out,
-                                   int n_img, int Hs, int Ws, int C, int Ho,
-                                   int Wo) {
-  const long long total = (long long)n_img * Ho * Wo;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int j = (int)(idx % Wo);
-  const int i = (int)((idx / Wo) % Ho);
-  const int n = (int)(idx / ((long long)Ho * Wo));
+// Source rows [r_lo, r_hi] and columns [c_lo, c_hi] that a tap of any
+// pixel of the tile can read (empty: hi < lo). Mirrored by warp_tile_box in
+// ops/warp_kernel.py.
+struct Box {
+  int r_lo, r_hi, c_lo, c_hi;
+};
 
-  float sx, sy;
-  warp_coords(coef + 6 * n, i, j, &sx, &sy);
-
-  float vw[2] = {0.0f, 0.0f}, hw[2] = {0.0f, 0.0f};
-  int ty[2] = {0, 0}, tx[2] = {0, 0};
-  if (sy > -1.0f && sy < (float)Hs) {
-    const int t0 = (int)floorf(sy);
-    for (int k = 0; k < 2; ++k) {
-      ty[k] = t0 + k;
-      if (ty[k] >= 0 && ty[k] < Hs) vw[k] = tap_bf16<kTaps>(sy, ty[k]);
-    }
-  }
-  if (sx > -1.0f && sx < (float)Ws) {
-    const int s0 = (int)floorf(sx);
-    for (int k = 0; k < 2; ++k) {
-      tx[k] = s0 + k;
-      if (tx[k] >= 0 && tx[k] < Ws) hw[k] = tap_bf16<kTaps>(sx, tx[k]);
-    }
-  }
-
-  const __nv_bfloat16* src = img + (long long)n * Hs * Ws * C;
-  float* dst = out + idx * C;
-  for (int ch = 0; ch < C; ++ch) {
-    float acc = 0.0f;
-    for (int k = 0; k < 2; ++k) {
-      if (hw[k] == 0.0f) continue;
-      // P = bf16(sum_t V[t] * img[t, s, ch]).
-      float p = 0.0f;
-      for (int q = 0; q < 2; ++q) {
-        if (vw[q] == 0.0f) continue;
-        const float px =
-            __bfloat162float(src[((long long)ty[q] * Ws + tx[k]) * C + ch]);
-        p = __fadd_rn(p, __fmul_rn(vw[q], px));
-      }
-      // out = sum_s f32(bf16(P * H)).
-      acc = __fadd_rn(acc, round_bf16(__fmul_rn(round_bf16(p), hw[k])));
-    }
-    dst[ch] = acc;
+__device__ __forceinline__ void box_axis(float lo, float hi, int n, int* first, int* last) {
+  *first = 0;
+  *last = -1;
+  if (hi > -1.0f && lo < (float)n) {  // false for NaN: no tap has a weight
+    *first = max(0, (int)floorf(fmaxf(lo, -1.0f)));
+    *last = min(n - 1, (int)floorf(fminf(hi, (float)n)) + 1);
   }
 }
 
-// ---------------------------------------------------------------------------
-// warp_affine_int8
-//
-// Replaces the "int8" construction of the same TPU kernel: q7 vertical taps
-// and shifted-s8 pixels, so the TPU's main contraction runs s8 x s8 -> s32.
-// Per output pixel and channel:
-//   q[t, s]  = clip(rint(px) - 128, -128, 127)             (round half even)
-//   V[t]     = trunc(max(0.5, 127.5 - |U - 127.5|)),
-//              U = 127*sy + (127*(1 - t) + 0.5)    (product and sum rounded)
-//   H[s]     = bf16(max(0, 1 - |(sx + (1 - s)) - 1|))          (rank-1 tap)
-//   P[s]     = bf16(sum_t q[t, s] * V[t])          (exact s32 sum, then bf16)
-//   out      = (sum_s f32(bf16(P[s] * H[s])) + (128 * sum_t V) * sum_s H)
-//              * f32(1/127)
-// The shift comes back through the separable correction 128*(sum V)*(sum H).
-// The TPU kernel pads the source to 32 rows and columns whose taps it
-// zeroes (U = -1 there), so here taps outside the source are dropped and
-// the sums run over valid rows and columns only. The kernel reads the bf16
-// source and quantizes in registers: no s8 copy of the crop is written.
-//
-// Bound: bytes, as the bf16 warp: the touched crop pixels read once, the
-// f32 output written once.
-// ---------------------------------------------------------------------------
-__global__ void warp_int8_kernel(const __nv_bfloat16* __restrict__ img,
-                                 const float* __restrict__ coef,
-                                 float* __restrict__ out,
-                                 int n_img, int Hs, int Ws, int C, int Ho, int Wo) {
-  const long long total = (long long)n_img * Ho * Wo;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int j = (int)(idx % Wo);
-  const int i = (int)((idx / Wo) % Ho);
-  const int n = (int)(idx / ((long long)Ho * Wo));
-
-  float sx, sy;
-  warp_coords(coef + 6 * n, i, j, &sx, &sy);
-
-  int vq[2] = {0, 0}, ty[2] = {0, 0}, tx[2] = {0, 0};
-  float hw[2] = {0.0f, 0.0f};
-  if (sy > -1.0f && sy < (float)Hs) {
-    const int t0 = (int)floorf(sy);
-    const float u0 = __fmul_rn(127.0f, sy);
-    for (int k = 0; k < 2; ++k) {
-      ty[k] = t0 + k;
-      if (ty[k] < 0 || ty[k] >= Hs) continue;
-      const float u = __fadd_rn(u0, (float)(127 * (1 - ty[k])) + 0.5f);
-      vq[k] = (int)fmaxf(0.5f, __fsub_rn(127.5f, fabsf(__fsub_rn(u, 127.5f))));
-    }
+__device__ __forceinline__ Box tile_box(const float* A, int i0, int j0, int th, int tw, int Hs,
+                                        int Ws) {
+  float x_lo = INFINITY, x_hi = -INFINITY, y_lo = INFINITY, y_hi = -INFINITY;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float sx, sy;
+    warp_coords(A, i0 + (k >> 1) * (th - 1), j0 + (k & 1) * (tw - 1), &sx, &sy);
+    x_lo = fminf(x_lo, sx);
+    x_hi = fmaxf(x_hi, sx);
+    y_lo = fminf(y_lo, sy);
+    y_hi = fmaxf(y_hi, sy);
   }
-  if (sx > -1.0f && sx < (float)Ws) {
-    const int s0 = (int)floorf(sx);
-    for (int k = 0; k < 2; ++k) {
-      tx[k] = s0 + k;
-      if (tx[k] >= 0 && tx[k] < Ws) hw[k] = tri_u_bf16(sx, (float)(1 - tx[k]));
-    }
-  }
-  const float corr = __fmul_rn((float)(128 * (vq[0] + vq[1])), __fadd_rn(hw[0], hw[1]));
+  Box b;
+  box_axis(y_lo, y_hi, Hs, &b.r_lo, &b.r_hi);
+  box_axis(x_lo, x_hi, Ws, &b.c_lo, &b.c_hi);
+  return b;
+}
 
-  const __nv_bfloat16* src = img + (long long)n * Hs * Ws * C;
-  float* dst = out + idx * C;
-  for (int ch = 0; ch < C; ++ch) {
-    float acc = 0.0f;
-    for (int k = 0; k < 2; ++k) {
-      if (hw[k] == 0.0f) continue;
-      int p = 0;
-      for (int q = 0; q < 2; ++q) {
-        if (vq[q] == 0) continue;
-        const float px = __bfloat162float(src[((long long)ty[q] * Ws + tx[k]) * C + ch]);
-        const int s8 = min(127, max(-128, __float2int_rn(px) - 128));
-        p += s8 * vq[q];
+// A source value as the warp's arithmetic takes it: the bf16 pixel widened
+// to f32, or for kInt8 its shifted-s8 value q = clip(rint(px) - 128) (an
+// integer, exact in f32: the products q * V and their two-term sums stay
+// below 2^15, so the f32 sums equal the TPU kernel's s32 sums).
+template <int kTaps>
+__device__ __forceinline__ float source_value(__nv_bfloat16 v) {
+  const float px = __bfloat162float(v);
+  return kTaps == kInt8 ? (float)min(127, max(-128, __float2int_rn(px) - 128)) : px;
+}
+
+// Channels [4g, 4g + 4) of a source pixel (zeros beyond C). kStaged: pixel
+// `pix` of the staged box, whose pixels hold G = ceil(C / 4) float4s; else
+// the element offset of the pixel in the face's image in device memory.
+template <int kTaps, bool kStaged>
+__device__ __forceinline__ float4 source_px4(const void* src, int pix, int g, int G, int C) {
+  if (kStaged) return reinterpret_cast<const float4*>(src)[pix * G + g];
+  const __nv_bfloat16* p = reinterpret_cast<const __nv_bfloat16*>(src) + pix + 4 * g;
+  const int n = C - 4 * g;
+  return make_float4(source_value<kTaps>(p[0]), n > 1 ? source_value<kTaps>(p[1]) : 0.0f,
+                     n > 2 ? source_value<kTaps>(p[2]) : 0.0f,
+                     n > 3 ? source_value<kTaps>(p[3]) : 0.0f);
+}
+
+// Round a and b to bf16 in one conversion.
+__device__ __forceinline__ void round_bf16x2(float* a, float* b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(*a, *b);
+  *a = __low2float(h);
+  *b = __high2float(h);
+}
+
+// One output value from its four taps' values: column k's vertical pass
+// P_k = bf16(0 + V0 * x0k + V1 * x1k), then 0 + bf16(P_0 * H_0) +
+// bf16(P_1 * H_1), each product and sum rounded on its own in the plain
+// version's order (a zero weight adds a signed zero, which changes no sum);
+// kInt8 adds the correction and scales by f32(1/127).
+template <int kTaps>
+__device__ __forceinline__ float resample_value(float x00, float x10, float x01, float x11,
+                                                float v0, float v1, float h0, float h1,
+                                                float corr) {
+  float p0 = __fadd_rn(__fadd_rn(0.0f, __fmul_rn(v0, x00)), __fmul_rn(v1, x10));
+  float p1 = __fadd_rn(__fadd_rn(0.0f, __fmul_rn(v0, x01)), __fmul_rn(v1, x11));
+  round_bf16x2(&p0, &p1);
+  float m0 = __fmul_rn(p0, h0), m1 = __fmul_rn(p1, h1);
+  round_bf16x2(&m0, &m1);
+  const float acc = __fadd_rn(__fadd_rn(0.0f, m0), m1);
+  return kTaps == kInt8 ? __fmul_rn(__fadd_rn(acc, corr), 1.0f / 127.0f) : acc;
+}
+
+// The two taps of coordinate s, t = tf and tf + 1 (tf = floor(s), in f32),
+// before and after their rounding to bf16 (one conversion for the pair):
+// legacy max(0, 1 - |s - t|), rank-1 max(0, 1 - |(s + (1 - t)) - 1|). 1 - t
+// is exact in f32, as the kernels' (float)(1 - t) is.
+template <int kTaps>
+__device__ __forceinline__ void tap_pair_bf16(float s, float tf, float* w0, float* w1) {
+  float raw[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float t = tf + (float)k;
+    const float d = kTaps == kLegacy ? __fsub_rn(s, t) : __fsub_rn(__fadd_rn(s, 1.0f - t), 1.0f);
+    raw[k] = fmaxf(0.0f, __fsub_rn(1.0f, fabsf(d)));
+  }
+  *w0 = raw[0];
+  *w1 = raw[1];
+  round_bf16x2(w0, w1);
+}
+
+// Resample the tile's pixels into outS ([tile_h][kWarpTileW][C] f32), one
+// thread per pixel, a warp per tile row: a thread keeps its column and
+// steps down the tile's rows, so the column's product a*j (and d*j) and its
+// conversion are made once. kStaged: src is the staged box (pixel (t, s) at
+// (t - r_lo) * box_cols + s - c_lo); else src is the face's image in device
+// memory. The conversions (float <-> int, floor, bf16) run at a fraction of
+// the f32 rate and bound this loop: each pixel makes 2 floors, 2 float ->
+// int conversions and 2 + C bf16 conversions of two values each.
+template <int kTaps, bool kStaged>
+__device__ __forceinline__ void resample_tile(const void* src, const float* A, int i0, int j0,
+                                              int th, int tw, int Hs, int Ws, int C,
+                                              const Box& b, float* outS) {
+  const int G = (C + 3) / 4;
+  const int box_cols = b.c_hi - b.c_lo + 1;
+  const int lj = threadIdx.x % kWarpTileW;
+  if (lj >= tw) return;
+  const float jf = (float)(j0 + lj);
+  const float aj = __fmul_rn(A[0], jf), dj = __fmul_rn(A[3], jf);
+  float fi = (float)(i0 + threadIdx.x / kWarpTileW);  // exact: integer steps
+  for (int li = threadIdx.x / kWarpTileW; li < th;
+       li += kTileRowsPerPass, fi += (float)kTileRowsPerPass) {
+    // a*j + b*i + c, d*j + e*i + f in the TPU kernel's order (warp_coords).
+    const float sx = __fadd_rn(__fadd_rn(aj, __fmul_rn(A[1], fi)), A[2]);
+    const float sy = __fadd_rn(__fadd_rn(dj, __fmul_rn(A[4], fi)), A[5]);
+    float* dst = outS + (li * kWarpTileW + lj) * C;
+
+    // The pixel's taps, once for all channels: weights (0 outside the
+    // source) and the rows and columns they read.
+    int ty = 0, tx = 0;
+    float vw[2] = {0.0f, 0.0f}, hw[2] = {0.0f, 0.0f};
+    bool vin[2] = {false, false}, hin[2] = {false, false};
+    if (sy > -1.0f && sy < (float)Hs) {
+      const float tf = floorf(sy);
+      ty = (int)tf;
+      vin[0] = ty >= 0;
+      vin[1] = ty + 1 < Hs;
+      if (kTaps == kInt8) {
+        const float u0 = __fmul_rn(127.0f, sy);
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float c = __fadd_rn(127.0f * (1.0f - (tf + (float)k)), 0.5f);  // exact
+          const float u = __fadd_rn(u0, c);
+          vw[k] = truncf(fmaxf(0.5f, __fsub_rn(127.5f, fabsf(__fsub_rn(u, 127.5f)))));
+        }
+      } else {
+        tap_pair_bf16<kTaps>(sy, tf, &vw[0], &vw[1]);
       }
-      acc = __fadd_rn(acc, round_bf16(__fmul_rn(round_bf16((float)p), hw[k])));
+      if (!vin[0]) vw[0] = 0.0f;
+      if (!vin[1]) vw[1] = 0.0f;
     }
-    dst[ch] = __fmul_rn(__fadd_rn(acc, corr), 1.0f / 127.0f);
+    if (sx > -1.0f && sx < (float)Ws) {
+      const float tf = floorf(sx);
+      tx = (int)tf;
+      hin[0] = tx >= 0;
+      hin[1] = tx + 1 < Ws;
+      tap_pair_bf16<kTaps == kInt8 ? kRank1 : kTaps>(sx, tf, &hw[0], &hw[1]);
+      if (!hin[0]) hw[0] = 0.0f;
+      if (!hin[1]) hw[1] = 0.0f;
+    }
+    if (!(vin[0] || vin[1]) || !(hin[0] || hin[1])) {  // every term is 0: so is the output
+      for (int ch = 0; ch < C; ++ch) dst[ch] = 0.0f;
+      continue;
+    }
+    // A tap outside the source has weight 0: it reads its in-source twin.
+    const int r0 = vin[0] ? ty : ty + 1, r1 = vin[1] ? ty + 1 : ty;
+    const int c0 = hin[0] ? tx : tx + 1, c1 = hin[1] ? tx + 1 : tx;
+    const float corr =
+        kTaps == kInt8 ? __fmul_rn(128.0f * __fadd_rn(vw[0], vw[1]), __fadd_rn(hw[0], hw[1]))
+                       : 0.0f;
+    int pix[2][2];  // [row][column]
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int t = q ? r1 : r0, s = k ? c1 : c0;
+        pix[q][k] = kStaged ? (t - b.r_lo) * box_cols + (s - b.c_lo) : (t * Ws + s) * C;
+      }
+    }
+    for (int g = 0; g < G; ++g) {
+      const float4 a = source_px4<kTaps, kStaged>(src, pix[0][0], g, G, C);
+      const float4 bq = source_px4<kTaps, kStaged>(src, pix[1][0], g, G, C);
+      const float4 c = source_px4<kTaps, kStaged>(src, pix[0][1], g, G, C);
+      const float4 d = source_px4<kTaps, kStaged>(src, pix[1][1], g, G, C);
+      const float x00[4] = {a.x, a.y, a.z, a.w}, x10[4] = {bq.x, bq.y, bq.z, bq.w};
+      const float x01[4] = {c.x, c.y, c.z, c.w}, x11[4] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (4 * g + k < C)
+          dst[4 * g + k] = resample_value<kTaps>(x00[k], x10[k], x01[k], x11[k], vw[0], vw[1],
+                                                 hw[0], hw[1], corr);
+      }
+    }
+  }
+}
+
+// Dynamic shared memory: the output tile (tile_h * 32 * C f32), then
+// box_budget bytes for the staged box, ceil(C / 4) float4s a source pixel
+// (warp_plan in ops/warp_kernel.py). tile_branch, when not null, gets 1
+// (staged) or 2 (device memory) per tile.
+template <int kTaps>
+__global__ void __launch_bounds__(kWarpThreads)
+warp_tile_kernel(const __nv_bfloat16* __restrict__ img, const float* __restrict__ coef,
+                 float* __restrict__ out, int* __restrict__ tile_branch, int Hs, int Ws, int C,
+                 int Ho, int Wo, int tile_h, int box_budget) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* outS = reinterpret_cast<float*>(smem);
+  float* boxS = outS + (size_t)tile_h * kWarpTileW * C;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = blockIdx.z;
+  const int i0 = blockIdx.y * tile_h, j0 = blockIdx.x * kWarpTileW;
+  const int th = min(tile_h, Ho - i0), tw = min(kWarpTileW, Wo - j0);
+  float A[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) A[k] = coef[6 * n + k];
+  const __nv_bfloat16* src = img + (size_t)n * Hs * Ws * C;
+
+  // 1. The box, and whether it fits the budget.
+  const Box b = tile_box(A, i0, j0, th, tw, Hs, Ws);
+  const int rows = b.r_hi - b.r_lo + 1, cols = b.c_hi - b.c_lo + 1;
+  const int G = (C + 3) / 4;
+  const bool empty = rows <= 0 || cols <= 0;
+  const bool staged = empty || (long long)rows * cols * G * 16 <= box_budget;
+  if (tile_branch != nullptr && tid == 0)
+    tile_branch[((size_t)n * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = staged ? 1 : 2;
+
+  if (staged) {
+    // 2. Stage: warp w takes box rows w, w + 8, w + 16, w + 24 in one pass
+    //    (then the next 32 rows), lane l their columns l, l + 32, ...: each
+    //    source pixel read once, widened (kInt8: quantized) and stored as G
+    //    float4s. A pass issues all four rows' loads before it stores, so a
+    //    tile waits about one round trip to device memory, not one a row.
+    float4* box4 = reinterpret_cast<float4*>(boxS);
+    for (int g = 0; g < G && !empty; ++g) {
+      for (int r0 = warp; r0 < rows; r0 += kStageRows * kWarpWarps) {
+        for (int s = lane; s < cols; s += 32) {
+          float4 v[kStageRows];
+#pragma unroll
+          for (int k = 0; k < kStageRows; ++k) {
+            const int r = r0 + k * kWarpWarps;
+            if (r < rows)
+              v[k] = source_px4<kTaps, false>(src, ((b.r_lo + r) * Ws + b.c_lo + s) * C, g, G, C);
+          }
+#pragma unroll
+          for (int k = 0; k < kStageRows; ++k) {
+            const int r = r0 + k * kWarpWarps;
+            if (r < rows) box4[(r * cols + s) * G + g] = v[k];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // 3. Resample from the staged box.
+    resample_tile<kTaps, true>(boxS, A, i0, j0, th, tw, Hs, Ws, C, b, outS);
+  } else {
+    resample_tile<kTaps, false>(src, A, i0, j0, th, tw, Hs, Ws, C, b, outS);
+  }
+  __syncthreads();
+
+  // 4. Store: warp w writes tile rows w, w + 8, ...; lane q the q-th
+  //    16-byte word of the output that the row's 32 * C floats touch.
+  const int rowlen = tw * C;
+  for (int li = warp; li < th; li += kWarpWarps) {
+    const size_t e0 = (((size_t)n * Ho + i0 + li) * Wo + j0) * C;
+    const int a = (int)(e0 & 3);  // the row starts a floats into its first word
+    const int nq = (a + rowlen + 3) >> 2;
+    float* g = out + (e0 - a);
+    const float* s = outS + li * kWarpTileW * C;  // s[k - a] is g[k]
+    for (int q = lane; q < nq; q += 32) {
+      const int k0 = 4 * q;
+      if (a == 0 && k0 + 4 <= rowlen) {  // streaming: nothing here is read again
+        __stcs(reinterpret_cast<float4*>(g + k0), *reinterpret_cast<const float4*>(s + k0));
+      } else {
+        for (int k = max(k0, a); k < min(k0 + 4, a + rowlen); ++k) g[k] = s[k - a];
+      }
+    }
   }
 }
 
@@ -533,7 +728,8 @@ unsigned int blocks_for(long long total) {
 extern "C" {
 
 // Each entry returns cudaGetLastError() after the launch (0 when it was
-// accepted). ``taps`` selects the construction: 0 legacy, 1 rank-1.
+// accepted). ``taps`` selects the construction: 0 legacy, 1 rank-1, 2 int8
+// (the warp only).
 // frame_idx may be null (the identity); window * C must be a multiple of 8.
 int dfv_crop_frac_bf16(const void* frames, void* out, const void* strip0,
                        const void* level, const void* frame_idx, const void* r,
@@ -571,27 +767,22 @@ int dfv_crop_pool_bf16(const void* frames, void* out, const void* y0_l0,
   return (int)cudaGetLastError();
 }
 
-int dfv_warp_affine_bf16(const void* img, const void* coef, void* out,
-                         int n_img, int Hs, int Ws, int C, int Ho, int Wo,
-                         int taps, void* stream) {
-  const long long total = (long long)n_img * Ho * Wo;
-  if (total > 0) {
-    auto kernel = taps == kRank1 ? warp_bf16_kernel<kRank1> : warp_bf16_kernel<kLegacy>;
-    kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)img, (const float*)coef, (float*)out, n_img, Hs,
-        Ws, C, Ho, Wo);
-  }
-  return (int)cudaGetLastError();
-}
-
-int dfv_warp_affine_int8(const void* img, const void* coef, void* out,
-                         int n_img, int Hs, int Ws, int C, int Ho, int Wo,
-                         void* stream) {
-  const long long total = (long long)n_img * Ho * Wo;
-  if (total > 0) {
-    warp_int8_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)img, (const float*)coef, (float*)out, n_img, Hs,
-        Ws, C, Ho, Wo);
+int dfv_warp_affine(const void* img, const void* coef, void* out, void* tile_branch, int n_img,
+                    int Hs, int Ws, int C, int Ho, int Wo, int taps, int tile_h, int box_budget,
+                    int smem_bytes, void* stream) {
+  if (n_img > 0 && Ho > 0 && Wo > 0) {
+    auto kernel = taps == kInt8    ? warp_tile_kernel<kInt8>
+                  : taps == kRank1 ? warp_tile_kernel<kRank1>
+                                   : warp_tile_kernel<kLegacy>;
+    if (smem_bytes > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const dim3 grid((Wo + kWarpTileW - 1) / kWarpTileW, (Ho + tile_h - 1) / tile_h, n_img);
+    kernel<<<grid, kWarpThreads, smem_bytes, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)img, (const float*)coef, (float*)out, (int*)tile_branch, Hs, Ws,
+        C, Ho, Wo, tile_h, box_budget);
   }
   return (int)cudaGetLastError();
 }

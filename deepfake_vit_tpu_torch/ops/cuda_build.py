@@ -35,8 +35,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "dfv_crop_frac_bf16": [*[_P] * 8, *[_I] * 9, _P],
     "dfv_crop_pool_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "dfv_warp_affine_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "dfv_warp_affine_int8": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "dfv_warp_affine": [_P, _P, _P, _P, *[_I] * 10, _P],
     "dfv_int8_gemm": [*[_P] * 6, *[_I] * 6, _P],
     "dfv_int8_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _I, _P],

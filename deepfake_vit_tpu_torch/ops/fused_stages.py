@@ -43,7 +43,7 @@ from .cuda_build import SMEM_PER_BLOCK, check, library, stream
 LAUNCHES_PER_BLOCK = 3  # device launches behind one run_block call
 _TILE = 8               # the kernels' output tile (csrc/fused.cu)
 _CHUNK = 32             # expanded channels per chunk there
-_MAX_COUT = 192         # projection accumulators per thread: 4 x 48
+_MAX_GROUP = 192        # output channels of a projection group there, at most
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,8 +185,6 @@ def check_plan(name: str, bp: BlockPlan) -> None:
         raise ValueError(f"{name}: a block without an expand conv has cexp == cin")
     if bp.residual and (bp.stride != 1 or bp.cin != bp.cout):
         raise ValueError(f"{name}: a residual needs stride 1 and cin == cout")
-    if bp.cout > _MAX_COUT:
-        raise ValueError(f"{name}: cout = {bp.cout} exceeds the kernel's {_MAX_COUT}")
     need = block_smem_bytes(bp)
     if need > SMEM_PER_BLOCK:
         raise ValueError(f"{name}: the tile needs {need} bytes of shared memory, "
@@ -205,18 +203,29 @@ def check_block(name: str, bp: BlockPlan, x: torch.Tensor, weights) -> None:
         raise ValueError(f"{name}: batch {x.shape[0]} exceeds the grid's 65535")
 
 
+def proj_group(cout: int) -> int:
+    """Output channels of one projection group of pass 2 (csrc/fused.cu):
+    cout split into as few groups of at most 192 as it takes, as even as
+    multiples of 8 allow (200 → 104 + 96, 224 → 112 + 112)."""
+    groups = -(-cout // _MAX_GROUP)
+    size = -(-cout // groups)
+    return -(-size // 8) * 8
+
+
 def block_smem_bytes(bp: BlockPlan) -> int:
     """Shared memory of pass 2 for this block (the layout of csrc/fused.cu:
-    input tile with halo, e, the chunk's weights, d, output tile)."""
+    input tile with halo, e, the chunk's weights, d, and one projection
+    group's weights and output tile)."""
     def a16(v):
         return (v + 15) & ~15
 
     tin = bp.stride * (_TILE - 1) + bp.kernel
     npin = tin * tin
+    group = proj_group(bp.cout)
     regions = (npin * (bp.cin + 4) * 4, npin * _CHUNK * 4, bp.cin * _CHUNK * 4,
                bp.kernel ** 2 * _CHUNK * 4, 3 * _CHUNK * 4, 8 * _CHUNK * 4, npin,
-               _CHUNK * (_TILE * _TILE + 1) * 4, bp.cout * _CHUNK * 4,
-               _TILE * _TILE * (bp.cout + 2) * 2)
+               _CHUNK * (_TILE * _TILE + 1) * 4, group * _CHUNK * 4,
+               _TILE * _TILE * (group + 2) * 2)
     return sum(a16(r) for r in regions)
 
 
@@ -429,6 +438,6 @@ def run_stage(plan: StagePlan, x: torch.Tensor, weights: Sequence[torch.Tensor])
 
 
 __all__ = ["BlockPlan", "StagePlan", "LAUNCHES_PER_BLOCK", "block_plan_from_args",
-           "block_smem_bytes", "check_block", "check_plan", "fold_stem_weights", "fold_block_weights", "run_stem",
+           "block_smem_bytes", "check_block", "check_plan", "proj_group", "fold_stem_weights", "fold_block_weights", "run_stem",
            "run_stem_plain", "run_block", "run_block_plain", "run_stage", "mbconv_plain",
            "depthwise_plain", "tile_mean_plain", "squeeze_excite_plain", "launch_block"]

@@ -18,6 +18,11 @@ The rank-1 taps are those of the TPU kernels' matmul construction:
 ``bf16(max(0, 1 − |U − 1|))`` with ``U = s + (1 − t)`` rounded once, where
 the legacy taps take ``bf16(max(0, 1 − |s − t|))``.
 
+The affine warps run as one kernel over the four constructions, tiled in
+2-D: each block stages the source box of its 32 × ``tile_h`` output tile in
+shared memory as f32 pixels (``warp_plan``, ``warp_tile_box``) or, where the
+box outgrows its budget, reads the taps from device memory.
+
 The library is built on first use (``ops/cuda_build.py``).
 """
 
@@ -31,13 +36,14 @@ from .cuda_build import (BUILD_DIR, NVCC_FLAGS, SMEM_PER_BLOCK, build_library, c
                          stream)
 from .umeyama import invert_affine
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "WARP_KERNELS", "CropFracPlan", "build_library",
-           "crop_frac", "crop_frac_mxu", "crop_frac_plain", "crop_frac_plan",
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "WARP_KERNELS", "CropFracPlan", "WarpPlan", "WarpTileBox",
+           "build_library", "crop_frac", "crop_frac_mxu", "crop_frac_plain", "crop_frac_plan",
            "crop_pool", "crop_pool_plain", "warp_affine_int8", "warp_affine_int8_plain",
            "warp_affine_legacy", "warp_affine_legacy_plain", "warp_affine_uw",
-           "warp_affine_uw16", "warp_affine_uw_plain"]
+           "warp_affine_uw16", "warp_affine_uw_plain", "warp_plan", "warp_tile_box",
+           "warp_tile_branches"]
 
-_TAPS = {"legacy": 0, "mxu": 1, "uw": 1, "uw16": 1}  # the kernels' ``taps`` argument
+_TAPS = {"legacy": 0, "mxu": 1, "uw": 1, "uw16": 1, "int8": 2}  # the kernels' ``taps`` argument
 
 
 def _tri_bf16(s: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -405,7 +411,107 @@ _WARP_PLAIN = {"legacy": warp_affine_legacy_plain, "uw": warp_affine_uw_plain,
                "uw16": warp_affine_uw_plain, "int8": warp_affine_int8_plain}
 
 
-def _warp_affine(fn, construction: str, images, matrices, out_size, inverse) -> torch.Tensor:
+class WarpPlan(NamedTuple):
+    """Launch plan of the warp kernel (``warp_tile_kernel``)."""
+
+    tile_h: int        # output rows of a tile
+    tile_w: int        # output columns of a tile: one warp's 32 pixels
+    box_budget: int    # shared-memory bytes for a tile's staged source box (f32 pixels)
+    out_bytes: int     # the tile's f32 output, staged for 16-byte stores
+    smem_bytes: int    # the block's dynamic shared memory: output tile and box
+
+
+_WARP_TILE_W = 32
+_WARP_TILE_H = 32
+_WARP_OUT_BUDGET = 12 * 1024   # 32 x 32 pixels x 3 channels x 4 bytes
+# A staged source pixel is ceil(C / 4) float4s: 16 bytes at C = 3. 24 KiB
+# hold a 32 x 32 tile's box up to a down-scale of about 0.8 at any roll (the
+# served warps take 0.5-0.75), about 1.15 upright; with the output tile, six
+# blocks (1,536 threads) fit an SM's 228 KB.
+_WARP_BOX_BUDGET = 24 * 1024
+
+
+def warp_plan(channels: int) -> WarpPlan:
+    """Tile and shared memory of the warp kernel for one launch.
+
+    A tile is 32 output columns by ``tile_h`` rows: 32 rows up to 3
+    channels, fewer for more, so that the staged output tile stays within
+    12 KiB (at least one row). A tile whose source box needs more than the
+    24 KiB box budget (at C = 3, a down-scale beyond about 0.8 at a roll of
+    45°, or beyond about 1.15 upright) reads its taps from device memory
+    instead (``warp_tile_box`` says which)."""
+    if channels < 1:
+        raise ValueError("channels must be positive")
+    tile_h = max(1, min(_WARP_TILE_H, _WARP_OUT_BUDGET // (_WARP_TILE_W * channels * 4)))
+    out_bytes = tile_h * _WARP_TILE_W * channels * 4
+    smem = out_bytes + _WARP_BOX_BUDGET
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"warp: {channels} channels need {smem} bytes of shared memory a "
+                         f"block, more than {SMEM_PER_BLOCK}")
+    return WarpPlan(tile_h, _WARP_TILE_W, _WARP_BOX_BUDGET, out_bytes, smem)
+
+
+class WarpTileBox(NamedTuple):
+    """Per tile (N, tiles_y, tiles_x): the source rows [r_lo, r_hi] and
+    columns [c_lo, c_hi] its taps can read (empty: hi < lo), the bytes the
+    staged box takes (ceil(C / 4) float4s a pixel), and whether the kernel
+    stages it (else it reads the taps from device memory)."""
+
+    r_lo: torch.Tensor
+    r_hi: torch.Tensor
+    c_lo: torch.Tensor
+    c_hi: torch.Tensor
+    box_bytes: torch.Tensor
+    staged: torch.Tensor
+
+
+def _box_axis(lo: torch.Tensor, hi: torch.Tensor, n: int):
+    some = (hi > -1.0) & (lo < float(n))  # False for NaN, as in the kernel
+    first = torch.floor(torch.clamp(lo, min=-1.0, max=float(n))).long().clamp_min(0)
+    last = (torch.floor(torch.clamp(hi, min=-1.0, max=float(n))).long() + 1).clamp_max(n - 1)
+    return torch.where(some, first, 0), torch.where(some, last, -1)
+
+
+def warp_tile_box(coeffs: torch.Tensor, out_size: Tuple[int, int], src_hw: Tuple[int, int],
+                  channels: int, plan: Optional[WarpPlan] = None) -> WarpTileBox:
+    """The warp kernel's source box of every output tile, computed as the
+    kernel computes it: the coordinates ``a·j + b·i + c`` in float32 at the
+    tile's four corners (rounding is monotone, so their extremes bound every
+    pixel's), floor(min) .. floor(max) + 1 clipped to the source; a staged
+    pixel takes ceil(C / 4) float4s.
+
+    coeffs: (N, 6) float32 dst→src rows (a, b, c, d, e, f)."""
+    plan = plan or warp_plan(channels)
+    Ho, Wo = out_size
+    Hs, Ws = src_hw
+    dev = coeffs.device
+    i0 = torch.arange(0, Ho, plan.tile_h, device=dev)
+    j0 = torch.arange(0, Wo, plan.tile_w, device=dev)
+    i1 = torch.clamp_max(i0 + plan.tile_h, Ho) - 1
+    j1 = torch.clamp_max(j0 + plan.tile_w, Wo) - 1
+    a, b, c, d, e, f = (coeffs[:, k, None, None].float() for k in range(6))
+    xs, ys = [], []
+    for i in (i0, i1):
+        for j in (j0, j1):
+            ii, jj = i.float()[:, None], j.float()[None, :]
+            xs.append(a * jj + b * ii + c)  # (N, tiles_y, tiles_x), the kernel's order
+            ys.append(d * jj + e * ii + f)
+
+    def extremes(vals):
+        lo, hi = vals[0], vals[0]
+        for v in vals[1:]:
+            lo, hi = torch.fmin(lo, v), torch.fmax(hi, v)  # fminf / fmaxf: NaN ignored
+        return lo, hi
+
+    r_lo, r_hi = _box_axis(*extremes(ys), Hs)
+    c_lo, c_hi = _box_axis(*extremes(xs), Ws)
+    rows, cols = r_hi - r_lo + 1, c_hi - c_lo + 1
+    box_bytes = torch.where((rows > 0) & (cols > 0), rows * cols * (-(-channels // 4) * 16), 0)
+    return WarpTileBox(r_lo, r_hi, c_lo, c_hi, box_bytes, box_bytes <= plan.box_budget)
+
+
+def _warp_affine(fn, construction: str, images, matrices, out_size, inverse,
+                 tile_branch: Optional[torch.Tensor] = None) -> torch.Tensor:
     if images.dim() != 4:
         raise ValueError(f"images must be (B, Hs, Ws, C), got {tuple(images.shape)}")
     B, Hs, Ws, C = images.shape
@@ -422,12 +528,15 @@ def _warp_affine(fn, construction: str, images, matrices, out_size, inverse) -> 
         return _WARP_PLAIN[construction](images, coeffs, (Ho, Wo))
     if dev.type != "cuda":
         raise RuntimeError(f"{fn.__name__} has no kernel for device {dev}")
+    if B > 65535 or Hs * Ws * C >= 2 ** 31:
+        raise ValueError(f"{fn.__name__}: the kernel takes at most 65535 images of fewer than "
+                         f"2^31 elements, got {B} of {Hs * Ws * C}")
+    plan = warp_plan(C)
     out = torch.empty((B, Ho, Wo, C), dtype=torch.float32, device=dev)
-    ptrs = (images.data_ptr(), coeffs.data_ptr(), out.data_ptr(), B, Hs, Ws, C, Ho, Wo)
-    if construction == "int8":
-        err = library().dfv_warp_affine_int8(*ptrs, stream())
-    else:
-        err = library().dfv_warp_affine_bf16(*ptrs, _TAPS[construction], stream())
+    err = library().dfv_warp_affine(
+        images.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
+        None if tile_branch is None else tile_branch.data_ptr(), B, Hs, Ws, C, Ho, Wo,
+        _TAPS[construction], plan.tile_h, plan.box_budget, plan.smem_bytes, stream())
     check(err, fn.__name__)
     fn.launches += 1
     return out
@@ -471,6 +580,28 @@ def warp_affine_int8(images: torch.Tensor, matrices: torch.Tensor,
 
 WARP_KERNELS = {"legacy": warp_affine_legacy, "uw": warp_affine_uw, "uw16": warp_affine_uw16,
                 "int8": warp_affine_int8}
+
+
+def warp_tile_branches(construction: str, images: torch.Tensor, matrices: torch.Tensor,
+                       out_size: Tuple[int, int], inverse: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The warp of ``construction`` (a key of ``WARP_KERNELS``, counted as
+    a launch of that wrapper) and, per output tile (N, tiles_y, tiles_x)
+    int32, the branch the kernel took: 1 for a staged source box, 2 for
+    taps read from device memory. On the CPU the branch is the one
+    ``warp_tile_box`` predicts."""
+    fn = WARP_KERNELS[construction]
+    B, Hs, Ws, C = images.shape
+    Ho, Wo = (int(v) for v in out_size)
+    plan = warp_plan(C)
+    shape = (B, -(-Ho // plan.tile_h), -(-Wo // plan.tile_w))
+    if images.device.type == "cpu":
+        A_inv = matrices if inverse else invert_affine(matrices)
+        box = warp_tile_box(A_inv.reshape(B, 6).float(), (Ho, Wo), (Hs, Ws), C, plan)
+        return (_warp_affine(fn, construction, images, matrices, out_size, inverse),
+                torch.where(box.staged, 1, 2).to(torch.int32))
+    branch = torch.zeros(shape, dtype=torch.int32, device=images.device)
+    return _warp_affine(fn, construction, images, matrices, out_size, inverse, branch), branch
 warp_affine_legacy.launches = 0
 warp_affine_uw.launches = 0
 warp_affine_uw16.launches = 0

@@ -54,8 +54,9 @@ BLOCK_SHAPES = [  # kernel, stride, cin, cout, expand, h_in
     (5, 1, 24, 24, 6, 16),    # k5 taps
     (5, 2, 24, 40, 6, 32),    # stride 2, k5
     (3, 1, 32, 16, 1, 16),    # no expansion
+    (5, 1, 200, 200, 6, 1),   # b6's widest fused block: cout 200, two projection groups
 ]
-BLOCK_IDS = ["k3s1-residual", "k3s2", "k5s1", "k5s2", "no-expand"]
+BLOCK_IDS = ["k3s1-residual", "k3s2", "k5s1", "k5s2", "no-expand", "b6-cout200"]
 
 
 def _args(kernel, stride, cin, cout, expand):
@@ -160,7 +161,8 @@ def _assert_steps(got, ref, steps=STEPS):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("variant,size,min_h", [("b0", 64, 8), ("b4", 192, 14), ("b4", 224, 14)])
+@pytest.mark.parametrize("variant,size,min_h", [("b0", 64, 8), ("b4", 192, 14), ("b4", 224, 14),
+                                                ("b6", 224, 14), ("b7", 224, 14)])
 def test_plans_match_jax(variant, size, min_h):
     plans, tail = plan_fused_stages(variant, size, min_h)
     jplans, jtail = j_plan(variant, size, min_h)
@@ -175,6 +177,9 @@ def test_plans_match_jax(variant, size, min_h):
         assert tail == 10 and [i for _, idx in plans for i in idx] == list(range(10))
     if (variant, size) == ("b4", 224):
         assert tail == 22 and plans[-1][0].h_out == 14
+    if variant in ("b6", "b7"):  # the widest fused blocks: cout 200 and 224 at 14²
+        assert plans[-1][0].h_out == 14
+        assert max(b.cout for p, _ in plans for b in p.blocks) == (200 if variant == "b6" else 224)
 
 
 @pytest.mark.parametrize("shape", BLOCK_SHAPES, ids=BLOCK_IDS)
@@ -385,10 +390,13 @@ def test_fused_wrappers_validate_and_count_only_launches():
         tfs.run_block(tfs.BlockPlan(**{**bp.__dict__, "kernel": 7}), x,
                       w[:2] + [torch.zeros(49, 96)] + w[3:])
     wide = tfs.BlockPlan(kernel=3, stride=1, cin=16, cexp=96, cse=4, cout=200, has_expand=True,
-                         residual=False)
-    with pytest.raises(ValueError, match="exceeds"):
-        tfs.run_block(wide, x, w[:8] + [torch.zeros(200, 96, dtype=torch.bfloat16),
-                                        torch.zeros(200)])
+                         residual=False)  # any cout: two projection groups of 104 and 96
+    assert tfs.run_block(wide, x, w[:8] + [torch.zeros(200, 96, dtype=torch.bfloat16),
+                                           torch.zeros(200)]).shape == (1, 8, 8, 200)
+    huge = tfs.BlockPlan(kernel=5, stride=1, cin=400, cexp=2400, cse=100, cout=400,
+                         has_expand=True, residual=True)  # a 12² tile of 400 f32 channels
+    with pytest.raises(ValueError, match="shared memory"):
+        tfs.check_plan("run_block", huge)
     with pytest.raises(ValueError, match="w_exp"):
         tfs.run_block(bp, x, [w[0].to("meta")] + w[1:])  # weights on another device
 
@@ -415,5 +423,21 @@ def test_fused_wrappers_validate_and_count_only_launches():
     assert tmb.fused_mbconv(x, folded, 6).shape == (1, 8, 8, 16)
     assert counts == (tfs.run_stem.launches, tfs.run_block.launches, tmb.fused_mbconv.launches)
     assert tfs.block_smem_bytes(tfs.block_plan_from_args(_args(5, 1, 160, 160, 6))) < 232448
-    with pytest.raises(ValueError, match="block 23"):  # b6 at 224²: cout 200 at 14²
-        FusedBackboneRunner(EfficientNetBackbone("b6"), image_size=224)
+
+
+@pytest.mark.parametrize("variant,cout,group,smem", [("b6", 200, 104, 201488),
+                                                     ("b7", 224, 112, 220432)])
+def test_runner_builds_for_wide_variants(variant, cout, group, smem):
+    """b6 and b7 at 224² fuse blocks whose cout exceeds one projection
+    group (200 and 224 at 14²); the runner plans and folds them, and their
+    pass 2 fits a block's shared memory only because it stages one group
+    of the projection at a time (b7's widest block would need 249,104 bytes
+    with all of cout)."""
+    runner = FusedBackboneRunner(EfficientNetBackbone(variant), image_size=224)
+    jplans, jtail = j_plan(variant, 224)
+    assert runner.tail_start == jtail == (31 if variant == "b6" else 38)
+    assert runner.n_blocks == sum(len(idx) for _, idx in jplans)
+    bps = [bp for plan, _ in runner.plans for bp in plan.blocks]
+    assert max(bp.cout for bp in bps) == cout and tfs.proj_group(cout) == group
+    assert max(tfs.block_smem_bytes(bp) for bp in bps) == smem <= 232448
+    assert sum(len(ws) for ws in runner.weights) == 2 + 10 * runner.n_blocks

@@ -204,7 +204,63 @@ def test_int8_conv_kernel_matches_plain(dev, shape, cout, k, stride, scales):
     assert torch.equal(got, ik.int8_conv_plain(xq, kq, sx, sw, b, stride))
 
 
+def _similarities(spec, side, out, dev):
+    """dst→src affines (N, 2, 3) from (roll in degrees, scale, mirrored,
+    centre offset in source pixels) rows, centred on the source."""
+    A = np.zeros((len(spec), 2, 3))
+    for k, (deg, scale, mirror, offset) in enumerate(spec):
+        th = np.deg2rad(deg)
+        R = scale * np.asarray([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        if mirror:
+            R[:, 0] *= -1.0
+        A[k, :, :2] = R
+        A[k, :, 2] = (side - 1) / 2 + np.asarray(offset) - R @ np.asarray([(out[1] - 1) / 2,
+                                                                           (out[0] - 1) / 2])
+    return torch.as_tensor(A, dtype=torch.float32, device=dev)
+
+
+# Warp geometries: rolls of 0°, 30°, 90° and 180°, a mirror, a source wholly
+# and one partly outside (128² crops to 192²; 160² to a ragged 37 × 53, which
+# fills no tile evenly), and a whole 640² frame at a down-scale of 3, whose
+# tiles read their taps from device memory.
+WARP_GEOMETRIES = {
+    "rolls": (128, (192, 192), [(0, 0.62, False, (0, 0)), (30, 0.62, False, (0, 0)),
+                                (90, 0.62, False, (3, -2)), (180, 0.62, False, (0, 0)),
+                                (12, 0.62, True, (0, 0)), (20, 0.62, False, (400, -300)),
+                                (45, 0.8, False, (70, 30))]),
+    "ragged": (160, (37, 53), [(0, 2.5, False, (0, 0)), (-35, 1.3, True, (20, -50)),
+                               (170, 0.9, False, (-60, 0))]),
+    "down-scale": (640, (192, 192), [(10, 3.0, False, (0, 0)), (-60, 2.0, True, (100, 0))]),
+}
+
+
+def _check_warp_geometries(dev, mode):
+    """One wrapper on every WARP_GEOMETRIES set: bit for bit against its
+    plain version, zeros from a wholly-outside source, the kernel's branch
+    per tile as warp_tile_box predicts it, and both branches taken."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+    plain = {"legacy": wk.warp_affine_legacy_plain, "int8": wk.warp_affine_int8_plain}.get(
+        mode, wk.warp_affine_uw_plain)
+    taken = set()
+    for name, (side, out, spec) in WARP_GEOMETRIES.items():
+        img = (torch.rand((len(spec), side, side, 3), generator=g) * 255).to(torch.bfloat16)
+        img, A = img.to(dev), _similarities(spec, side, out, dev)
+        before = wk.WARP_KERNELS[mode].launches
+        got, branch = wk.warp_tile_branches(mode, img, A, out, inverse=True)
+        torch.cuda.synchronize()
+        assert wk.WARP_KERNELS[mode].launches == before + 1
+        assert torch.equal(got, plain(img, A.reshape(-1, 6), out)), name
+        box = wk.warp_tile_box(A.reshape(-1, 6), out, (side, side), 3)
+        assert torch.equal(branch, torch.where(box.staged, 1, 2).to(torch.int32)), name
+        assert torch.equal(got, wk.WARP_KERNELS[mode](img, A, out, inverse=True)), name
+        if name == "rolls":
+            assert not got[5].any()  # wholly outside: border 0
+        taken |= set(branch.unique().tolist())
+    assert taken == {1, 2}
+
+
 def test_warp_kernel_matches_plain(dev):
+    """The legacy warp at path A's shapes, then on the warp geometries."""
     N, S, out = 64, 128, (192, 192)
     g = torch.Generator(device="cpu").manual_seed(1)
     crop = (torch.rand((N, S, S, 3), generator=g) * 255).to(dev)
@@ -220,6 +276,7 @@ def test_warp_kernel_matches_plain(dev):
     want = wk.warp_affine_legacy_plain(crop.to(torch.bfloat16), A.reshape(N, 6), out)
     assert torch.equal(got, want)
     assert (got == 0).any() and torch.isfinite(got).all()
+    _check_warp_geometries(dev, "legacy")
 
 
 @pytest.mark.parametrize("shared_frames", [False, True])
@@ -248,7 +305,8 @@ def test_crop_frac_mxu_kernel_matches_plain(dev, shared_frames):
 def test_tap_mode_warp_kernels_match_plain(dev, mode, pixels):
     """The rank-1 ("uw"/"uw16") and int8 warp kernels at the paths' shapes
     (160² crops to 224², 128² crops to 192²): bit for bit, also on a
-    non-integer bf16 crop (the int8 kernel quantizes it half to even)."""
+    non-integer bf16 crop (the int8 kernel quantizes it half to even); then
+    on the warp geometries."""
     N, S, out = (96, 160, (224, 224)) if mode != "int8" else (64, 128, (192, 192))
     g = torch.Generator(device="cpu").manual_seed(4)
     crop = torch.rand((N, S, S, 3), generator=g) * 255
@@ -270,6 +328,8 @@ def test_tap_mode_warp_kernels_match_plain(dev, mode, pixels):
     assert (got == 0).any() and torch.isfinite(got).all()
     if mode == "uw16":
         assert torch.equal(got, wk.warp_affine_uw(crop, A, out, inverse=True))
+    if pixels == "bf16":
+        _check_warp_geometries(dev, mode)
 
 
 def test_int8_warp_kernel_border_is_exact_zero(dev):
@@ -314,8 +374,11 @@ B4 = block_args("b4")
     (dict(kernel=3, stride=1, expand_ratio=1, in_filters=32, out_filters=16, se_ratio=0.25), 9, 3),
     (B4[1], 96, 8), (B4[2], 96, 8), (B4[3], 48, 8), (B4[6], 48, 8), (B4[7], 24, 8),
     (B4[10], 28, 4), (B4[16], 14, 4), (B4[17], 14, 4),
+    (block_args("b6")[24], 14, 4), (block_args("b7")[29], 14, 4),
+    (dict(kernel=3, stride=1, expand_ratio=6, in_filters=16, out_filters=264, se_ratio=0.25), 9, 2),
 ], ids=["k3s1-ragged", "k3s2", "k5s1", "k5s2-ragged", "no-expand-ragged", "b4-1@96", "b4-2@96",
-        "b4-3@48", "b4-6@48", "b4-7@24", "b4-10@28", "b4-16@14", "b4-17@14"])
+        "b4-3@48", "b4-6@48", "b4-7@24", "b4-10@28", "b4-16@14", "b4-17@14", "b6-24@14-cout200",
+        "b7-29@14-cout224", "cout264-two-sweeps"])
 def test_fused_block_kernel_matches_plain(dev, args, h, B):
     blk = _randomize_bn(init_weights(MBConvBlock(**args), h), h + 1).to(dev).eval()
     bp = fs.block_plan_from_args(args)

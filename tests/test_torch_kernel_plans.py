@@ -232,3 +232,100 @@ def test_int8_tail_keeps_weights_k_major():
     sw = torch.from_numpy(rng.uniform(1e-3, 1e-2, w.shape[1]).astype(np.float32))
     one = torch.ones(1)
     assert torch.equal(ik.int8_gemm(xq, w, one, sw), ik.int8_gemm(xq, w.contiguous(), one, sw))
+
+
+def _warp_affines(n, side, out, seed):
+    """dst→src similarities from ``out``² outputs into ``side``² sources:
+    rolls over [−180°, 180°], scales 0.3–4 source pixels per output pixel,
+    every third mirrored, centres from the source's middle to well outside
+    it (some wholly outside)."""
+    rng = np.random.default_rng(seed)
+    th = rng.uniform(-np.pi, np.pi, n)
+    th[:4] = np.deg2rad([0.0, 30.0, 90.0, 180.0])
+    s = np.exp(rng.uniform(np.log(0.3), np.log(4.0), n))
+    s[-2:] = 0.5
+    R = s[:, None, None] * np.stack(
+        [np.stack([np.cos(th), -np.sin(th)], -1), np.stack([np.sin(th), np.cos(th)], -1)], 1)
+    R[::3, :, 0] *= -1.0
+    centre = (side - 1) / 2 + rng.uniform(-0.9, 0.9, (n, 2)) * side
+    centre[-2:] = [[side * 3.0, side * 2.5], [-side * 2.0, side * 0.5]]  # wholly outside
+    t = centre - np.einsum("nij,j->ni", R, np.asarray([(out - 1) / 2, (out - 1) / 2]))
+    return torch.as_tensor(np.concatenate([R, t[..., None]], -1).reshape(n, 6),
+                           dtype=torch.float32)
+
+
+@pytest.mark.parametrize("side,out", [(128, 192), (160, 224), (640, 192)],
+                         ids=["crop128-to-192", "crop160-to-224", "frame640-to-192"])
+def test_warp_tile_box_covers_every_tap(side, out):
+    """Every tap the warp reads (either tap row and column of a pixel whose
+    coordinate lies inside the source: a superset of the nonzero taps of
+    every construction) lies in its tile's box as warp_tile_box computes it,
+    in float32 with the kernel's operation order; a wholly-outside warp has
+    empty boxes, and a staged box takes a float4 a pixel at C = 3."""
+    n = 24
+    coeffs = _warp_affines(n, side, out, seed=side + out)
+    plan = wk.warp_plan(C)
+    box = wk.warp_tile_box(coeffs, (out, out), (side, side), C, plan)
+    i = torch.arange(out, dtype=torch.float32)[:, None]
+    j = torch.arange(out, dtype=torch.float32)[None, :]
+    a, b, c, d, e, f = (coeffs[:, k, None, None] for k in range(6))
+    sx, sy = a * j + b * i + c, d * j + e * i + f  # the plain warp's coordinates
+    tile = (torch.arange(n)[:, None, None], (i // plan.tile_h).long(), (j // plan.tile_w).long())
+    lo_r, hi_r, lo_c, hi_c = (v[tile] for v in (box.r_lo, box.r_hi, box.c_lo, box.c_hi))
+    for s_, n_, lo, hi in ((sy, side, lo_r, hi_r), (sx, side, lo_c, hi_c)):
+        inside = (s_ > -1.0) & (s_ < n_)
+        for k in (0, 1):
+            t = torch.floor(s_).long() + k
+            read = inside & (t >= 0) & (t < n_)
+            assert ((t >= lo) & (t <= hi) | ~read).all()
+    rows = box.r_hi - box.r_lo + 1
+    assert (rows.clamp_min(0) <= side).all() and (box.box_bytes >= 0).all()
+    far = slice(n - 2, n)
+    assert (box.box_bytes[far] == 0).all() and box.staged[far].all()
+    assert (box.r_hi[far] < box.r_lo[far]).all() or (box.c_hi[far] < box.c_lo[far]).all()
+    cols = box.c_hi - box.c_lo + 1
+    some = (rows > 0) & (cols > 0)
+    assert torch.equal(box.box_bytes[some], (rows * cols * 16)[some])
+    assert torch.equal(box.staged, box.box_bytes <= plan.box_budget)
+
+
+def test_warp_plan_and_the_device_memory_branch():
+    """The plan fits a block's shared memory at every channel count the
+    port warps (and far beyond); the served warps stage every tile; a
+    whole 640² frame warped to 192² at a down-scale of 3 overflows the box
+    budget in every tile, so the kernel reads from device memory there;
+    warp_tile_branches on the CPU returns the plain warp and that
+    prediction."""
+    for channels in (1, 3, 4, 64, 1024):
+        p = wk.warp_plan(channels)
+        assert p.smem_bytes == p.out_bytes + p.box_budget <= SMEM_PER_BLOCK
+        assert p.out_bytes == p.tile_h * p.tile_w * channels * 4 and p.tile_w == 32
+    p = wk.warp_plan(C)
+    assert (p.tile_h, p.out_bytes, p.box_budget) == (32, 12288, 24576)
+    assert 6 * (p.smem_bytes + 1024) <= 233472  # six blocks an SM
+    with pytest.raises(ValueError, match="shared memory"):
+        wk.warp_plan(4096)
+
+    def similarity(scale, deg, side, out, offset=(0.0, 0.0)):
+        th = np.deg2rad(deg)
+        R = scale * np.asarray([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+        t = (side - 1) / 2 + np.asarray(offset) - R @ np.asarray([(out - 1) / 2] * 2)
+        return torch.as_tensor(np.concatenate([R, t[:, None]], 1)[None], dtype=torch.float32)
+
+    # The served geometries: 128² windows to 192² faces, 160² to 224², any roll.
+    for side, out in ((128, 192), (160, 224)):
+        for deg in (0.0, 30.0, 45.0, 90.0, 180.0):
+            A = similarity(side / out * 0.95, deg, side, out)
+            assert wk.warp_tile_box(A.reshape(1, 6), (out, out), (side, side), C).staged.all()
+    A = similarity(3.0, 10.0, 640, 192)
+    box = wk.warp_tile_box(A.reshape(1, 6), (192, 192), (640, 640), C)
+    assert not box.staged.any() and int(box.box_bytes.min()) > p.box_budget
+
+    g = torch.Generator().manual_seed(0)
+    img = (torch.rand((1, 640, 640, C), generator=g) * 255).to(torch.bfloat16)
+    before = {k: fn.launches for k, fn in wk.WARP_KERNELS.items()}
+    out, branch = wk.warp_tile_branches("int8", img, A.reshape(1, 2, 3), (192, 192),
+                                        inverse=True)
+    assert torch.equal(out, wk.warp_affine_int8_plain(img, A.reshape(1, 6), (192, 192)))
+    assert branch.dtype == torch.int32 and branch.shape == (1, 6, 6) and (branch == 2).all()
+    assert {k: fn.launches for k, fn in wk.WARP_KERNELS.items()} == before  # CPU: no launch
