@@ -55,6 +55,14 @@ VARIANTS = {
          "  unsigned u = __float_as_uint(x);\n  u += 0x7fffu + ((u >> 16) & 1u);\n"
          "  return __uint_as_float(u & 0xffff0000u);\n}\n\n// Round a and b to bf16 in one conversion.\n")],
         True, [(32, 32, 24 * 1024)]),
+    "8 blocks an SM (at most 32 registers)": ([(
+        "__global__ void __launch_bounds__(kWarpThreads)\nwarp_tile_kernel(",
+        "__global__ void __launch_bounds__(kWarpThreads, 8)\nwarp_tile_kernel(")],
+        True, [(32, 32, 16 * 1024), (32, 32, 12 * 1024)]),
+    "7 blocks an SM": ([(
+        "__global__ void __launch_bounds__(kWarpThreads)\nwarp_tile_kernel(",
+        "__global__ void __launch_bounds__(kWarpThreads, 7)\nwarp_tile_kernel(")],
+        True, [(32, 32, 16 * 1024)]),
     "taps from device memory, nothing staged": ([(_STAGED, "  const bool staged = empty;")],
                                                 True, [(32, 32, 24 * 1024)]),
     "stage + store, no resampling": ([(_RESAMPLE, _SKIP_RESAMPLE)], False, [(32, 32, 24 * 1024)]),
