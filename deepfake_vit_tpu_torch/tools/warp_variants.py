@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parents[2]
 OUT_DIR = ROOT / "build" / "warp_variants"
+sys.path.insert(0, str(ROOT))  # run as a script from anywhere
 
 _RESAMPLE = "  const int G = (C + 3) / 4;\n  const int box_cols = b.c_hi - b.c_lo + 1;\n"
 _SKIP_RESAMPLE = (_RESAMPLE + "  if (true) {\n    for (int p = threadIdx.x; p < th * kWarpTileW * C; "
@@ -74,8 +75,10 @@ VARIANTS = {
 
 def build(src: str) -> dict:
     """Compile every variant in parallel; returns name -> loaded library."""
+    from deepfake_vit_tpu_torch.ops.cuda_build import NVCC_FLAGS, _nvcc
+
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = "/usr/local/cuda/bin/nvcc"
+    nvcc = _nvcc()
     procs = []
     for k, (name, (pairs, _, _)) in enumerate(VARIANTS.items()):
         text = src
@@ -86,8 +89,7 @@ def build(src: str) -> dict:
         cu, so = OUT_DIR / f"warp_{k}.cu", OUT_DIR / f"libwarp_{k}.so"
         cu.write_text(text)
         procs.append((name, so, subprocess.Popen(
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler",
-             "-fPIC", "-shared", "-o", str(so), str(cu)],
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     libs = {}
     for name, so, proc in procs:
@@ -121,7 +123,6 @@ def timed(fn, iters: int = 200, repeats: int = 5):
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("warp_variants: needs an NVIDIA GPU")
-    sys.path.insert(0, str(ROOT))
     from deepfake_vit_tpu_torch.ops import warp_kernel as wk
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
