@@ -14,20 +14,24 @@
    Beside them each kernel's and each library call's own device time from
    ``torch.profiler`` over the same launches (``device_ms``,
    ``library_device_ms``): the numbers to compare a kernel with its
-   library call and its bound. The crop, warp and GEMM wrappers must
-   launch exactly one device kernel a call. The GEMM gets K-major weights, as the
-   int8 tail keeps them; ``torch._int_mm`` is timed on those and on
+   library call and its bound. The crop, warp and int8 wrappers must
+   launch exactly one device kernel a call. The GEMM gets K-major weights,
+   as the int8 tail keeps them; ``torch._int_mm`` is timed on those and on
    row-major weights and the faster stands as the library call; a fill of
-   the f32 output is printed as the store floor. The two int8 kernels and
-   the four warps (legacy, "uw", "uw16" and int8 taps) must agree bit for
-   bit, the three crops (the fractional crop with legacy and rank-1 "mxu"
-   taps, the pooled crop) within one bf16 step (they agree bit for bit),
-   "uw" and "uw16" with each other bit for bit, the fused stem, MBConv
-   block (B4's blocks, and b6's and b7's widest, whose cout of 200 and 224
-   runs in two projection groups) and single-block prototype within two
-   bf16 steps of the value (their 1×1 products sum in another order than
-   the plain versions'); the share of elements that differ at all is
-   printed. A warp geometry phase runs every warp construction on rolls of
+   the f32 output is printed as the store floor. The convolution runs at
+   every distinct shape that path A's detector launches in one served batch
+   (recorded from its runner, 25 launches, 12 shapes), its kernels K-major
+   as the runner keeps them, and the per-batch sums of device time and
+   bound are printed. The two int8 kernels and the four warps (legacy,
+   "uw", "uw16" and int8 taps) must agree bit for bit, the three crops (the
+   fractional crop with legacy and rank-1 "mxu" taps, the pooled crop)
+   within one bf16 step (they agree bit for bit), "uw" and "uw16" with each
+   other bit for bit, the fused stem, MBConv block (B4's blocks, and b6's
+   and b7's widest, whose cout of 200 and 224 runs in two projection
+   groups) and single-block prototype within two bf16 steps of the value
+   (their 1×1 products sum in another order than the plain versions', on
+   the tensor cores); the share of elements that differ at all is printed
+   beside the largest difference. A warp geometry phase runs every warp construction on rolls of
    0°, 30°, 90° and 180°, a mirror, sources wholly and partly outside and a
    whole-frame down-scale, bit for bit, and prints which tiles staged their
    source box and which read from device memory (both must run).
@@ -130,14 +134,9 @@ FUSED_BLOCKS = (("b4", 1, 96, 128), ("b4", 2, 96, 128), ("b4", 3, 48, 128), ("b4
                 ("b4", 7, 24, 128), ("b4", 17, 14, 32), ("b6", 24, 14, 32), ("b7", 29, 14, 32))
 PROTO_BLOCKS = ((3, 48, 128), (12, 14, 128))
 # GEMM shapes of the tail at B = 128 (rows = 128 x H x W): largest M, a
-# mid shape, largest K. Conv shapes of the detector at the 320² canvas.
+# mid shape, largest K. The detector's convolutions are recorded from path
+# A's runner (detector_conv_shapes).
 GEMM_SHAPES = ((128 * 576, 56, 336), (128 * 144, 160, 960), (128 * 36, 2688, 448))
-CONV_SHAPES = (  # (name, H, Cin, Cout, k, stride)
-    ("stem2 160² 32→32 s2", 160, 32, 32, 3, 2),
-    ("tower 40² 64→64 s1", 40, 64, 64, 3, 1),
-    ("block 10² 256→256 s1", 10, 256, 256, 3, 1),
-    ("shortcut 80² 32→64 1×1 s2", 80, 32, 64, 1, 2),
-)
 
 # Kernel-name fragments → class for the profile, first match wins.
 KERNEL_CLASSES = (
@@ -195,22 +194,26 @@ def device_ms(fn, own: str = "", iters: int = 20, warmup: int = 3) -> dict:
         fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(5):  # now and then a profile comes back without its device records
+    # Now and then a profile comes back without its device records, or
+    # without some of them (a kernel counted 19 times in 20 calls): every
+    # call launches the same kernels, so a count that is no multiple of the
+    # calls means lost records, and the profile is taken again.
+    for _ in range(5):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+        events = [ev for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and ev.self_device_time_total > 0]
         kernels = {ev.key: {"ms": ev.self_device_time_total / 1e3 / iters,
-                            "launches": ev.count / iters}
-                   for ev in prof.key_averages()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and ev.self_device_time_total > 0}
-        if kernels:
+                            "launches": ev.count / iters} for ev in events}
+        if kernels and all(ev.count % iters == 0 for ev in events):
             break
         time.sleep(0.2)
     else:
         t = time_ms(fn, iters, warmup=0, repeats=3)
-        print(f"device_ms: the profiler saw no device records in five tries; {t['median']:.4f} "
+        print(f"device_ms: the profiler lost device records in five tries; {t['median']:.4f} "
               f"ms from CUDA events instead (host enqueue included)")
         return {"ms": t["median"], "call_ms": t["median"], "launches": float("nan"),
                 "kernels": {}, "source": "CUDA events"}
@@ -466,19 +469,53 @@ def check_int8_gemm(ik, dev) -> list:
     return rows
 
 
-def check_int8_conv(ik, dev, batch: int = 128) -> list:
-    """int8_conv vs its plain version at the detector's shapes. No PyTorch
-    call computes an s8 convolution on CUDA; the bf16 cuDNN convolution of
-    the same shape is printed as context only: it is a different function."""
+def detector_conv_shapes(run, *args):
+    """Call ``run(*args)`` and record every launch of the int8 detector's
+    convolution in it: [(H, Cin, Cout, k, stride)] in launch order, and
+    whether the runner's kernels are K-major (the HWIO view of a
+    contiguous (Cout, k, k, Cin) tensor)."""
+    from deepfake_vit_tpu_torch.models import scrfd_int8
+
+    seen, layouts = [], set()
+    real = scrfd_int8.int8_conv
+
+    def recording(xq, kq, sx, sw, bias=None, stride=1):
+        if xq.shape[1] != xq.shape[2]:
+            fail(f"int8_conv on a non-square image {tuple(xq.shape)}")
+        seen.append((xq.shape[1], xq.shape[3], kq.shape[3], kq.shape[0], stride))
+        layouts.add(kq.permute(3, 0, 1, 2).is_contiguous())
+        return real(xq, kq, sx, sw, bias, stride)
+
+    scrfd_int8.int8_conv = recording
+    try:
+        run(*args)
+    finally:
+        scrfd_int8.int8_conv = real
+    if len(layouts) != 1:
+        fail(f"the detector keeps its kernels in more than one layout: {layouts}")
+    return seen, layouts.pop()
+
+
+def check_int8_conv(ik, dev, convs, k_major: bool, batch: int = 128) -> list:
+    """int8_conv vs its plain version at each distinct shape of ``convs``
+    (the detector's launches, (H, Cin, Cout, k, stride)), the kernels laid
+    out as the runner keeps them, and the per-batch sums over all of
+    ``convs``. No PyTorch call computes an s8 convolution on CUDA; the bf16
+    cuDNN convolution of the same shape is printed as context only: it is a
+    different function."""
     import torch.nn.functional as F
 
     from deepfake_vit_tpu_torch.models.layers import same_pads
 
-    rows = []
-    for name, H, cin, cout, k, stride in CONV_SHAPES:
-        g = torch.Generator(device="cpu").manual_seed(H + cin + cout)
+    rows, per_shape = [], {}
+    for shape in dict.fromkeys(convs):  # distinct, in launch order
+        H, cin, cout, k, stride = shape
+        name = f"{H}² {cin}→{cout} {k}×{k} s{stride}"
+        g = torch.Generator(device="cpu").manual_seed(H + cin + cout + k)
         xq = torch.randint(-127, 128, (batch, H, H, cin), generator=g, dtype=torch.int8).to(dev)
         kq = torch.randint(-127, 128, (k, k, cin, cout), generator=g, dtype=torch.int8).to(dev)
+        if k_major:
+            kq = kq.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
         sx = torch.tensor([0.031], device=dev)
         sw = (torch.rand(cout, generator=g) * 0.01 + 0.001).to(dev)
         b = torch.randn(cout, generator=g).to(dev)
@@ -487,6 +524,7 @@ def check_int8_conv(ik, dev, batch: int = 128) -> list:
         err = (got - ik.int8_conv_plain(xq, kq, sx, sw, b, stride)).abs().max().item()
         t = time_ms(lambda: ik.int8_conv(xq, kq, sx, sw, b, stride))
         d = device_ms(lambda: ik.int8_conv(xq, kq, sx, sw, b, stride), "int8_conv")
+        one_launch("int8_conv", d, "int8_conv_kernel")
         plain = time_ms(lambda: ik.int8_conv_plain(xq, kq, sx, sw, b, stride), iters=2, repeats=3)
         lo, hi = same_pads(H, k, stride)
         x16 = F.pad(xq.permute(0, 3, 1, 2).to(torch.bfloat16), (lo, hi, lo, hi))
@@ -497,17 +535,31 @@ def check_int8_conv(ik, dev, batch: int = 128) -> list:
         taps = sum(sum(0 <= o * stride - lo + r < H for o in range(Ho)) for r in range(k))
         b_ms, by = bound(batch * H * H * cin + k * k * cin * cout + 4 * batch * Ho * Ho * cout
                          + 4 * (1 + 2 * cout), 2.0 * batch * taps * taps * cin * cout)
-        print(f"int8_conv {name}, B = {batch}: max_abs {err} (tol {INT8_TOL}) kernel_ms {fmt(t)} "
-              f"device_ms {fmt_dev(d)} plain_ms {fmt(plain)} bound_us {b_ms * 1e3:.2f} ({by}); "
-              f"context, a different function: bf16 cuDNN convolution of this shape "
-              f"{fmt(cudnn)} ms")
+        n = convs.count(shape)
+        # An earlier checkout timed through tools/kernel_times.py may have no plan.
+        plan = ik.int8_conv_plan(batch * Ho * Ho, k * k * cin, cout, cin) if hasattr(
+            ik, "int8_conv_plan") else None
+        print(f"int8_conv {name}, B = {batch}, {n} a batch"
+              + (f", tile {plan.tile_m}x{plan.tile_n}, {plan.blocks} blocks, {plan.copy_bytes}-byte "
+                 f"copies" if plan else "")
+              + f": max_abs {err} (tol {INT8_TOL}) kernel_ms {fmt(t)} device_ms {fmt_dev(d)} "
+              f"plain_ms {fmt(plain)} bound_us {b_ms * 1e3:.2f} ({by}), {d['ms'] / b_ms:.1f}x; "
+              f"context, a different function: bf16 cuDNN convolution of this shape {fmt(cudnn)} ms")
         if not err <= INT8_TOL:
             fail(f"int8_conv disagrees with its plain version at {name}: {err}")
-        rows.append({"shape": f"{name}, B = {batch}", "max_abs_err": err, "ms": t["median"],
-                     "ms_range": [t["min"], t["max"]], "device_ms": d["ms"],
-                     "device_kernels": d["kernels"], "plain_ms": plain["median"],
-                     "bound_ms": b_ms, "bound_by": by, "library_ms": None,
-                     "context_bf16_cudnn_ms": cudnn["median"]})
+        per_shape[shape] = (d["ms"], t["median"], b_ms)
+        rows.append({"shape": f"{name}, B = {batch}", "launches_per_batch": n,
+                     "max_abs_err": err, "ms": t["median"], "ms_range": [t["min"], t["max"]],
+                     "device_ms": d["ms"], "device_kernels": d["kernels"],
+                     "plain_ms": plain["median"], "bound_ms": b_ms, "bound_by": by,
+                     "library_ms": None, "context_bf16_cudnn_ms": cudnn["median"],
+                     "plan": plan._asdict() if plan else None})
+    batch_dev, batch_ms, batch_bound = (sum(per_shape[c][i] for c in convs) for i in range(3))
+    print(f"int8_conv, the detector's {len(convs)} launches a batch of {batch}: device_ms "
+          f"{batch_dev:.4f} (kernel_ms {batch_ms:.4f}) against a summed bound of "
+          f"{batch_bound:.4f} ms, {batch_dev / batch_bound:.2f}x")
+    rows[0]["batch"] = {"launches": len(convs), "device_ms": batch_dev, "ms": batch_ms,
+                        "bound_ms": batch_bound}
     return rows
 
 
@@ -596,14 +648,31 @@ def fused_row(name, shape, agree, t, d, plain, b_ms, by, context) -> dict:
             "context_eager_module_ms": context["median"]}
 
 
+def block_inputs(fs, bb, variant: str, idx: int, h: int, B: int, g, dev):
+    """One block of phase 3: B4's own block ``idx`` of ``bb``, or that block
+    of a wider variant with seeded weights; its plan, folded weights and a
+    seeded (B, h, h, cin) bf16 input drawn from ``g``."""
+    from deepfake_vit_tpu_torch.models.efficientnet import MBConvBlock, block_args
+    from deepfake_vit_tpu_torch.models.layers import init_weights
+
+    if variant == "b4":
+        blk, args = getattr(bb, f"block_{idx}"), bb.blocks[idx]
+    else:  # one block of a wider variant, seeded
+        args = block_args(variant)[idx]
+        blk = init_weights(MBConvBlock(**args), idx).to(dev).eval()
+    bp = fs.block_plan_from_args(args)
+    weights = fs.fold_block_weights(blk, bp)
+    x = torch.randn((B, h, h, bp.cin), generator=g).to(dev).to(torch.bfloat16)
+    return blk, args, bp, weights, x
+
+
 def check_fused(fs, fm, dev):
     """run_stem, run_block and fused_mbconv against their plain versions at
     B4's shapes, on seeded weights and inputs. Returns (stem row, block
     rows, prototype rows)."""
     import torch.nn.functional as F
 
-    from deepfake_vit_tpu_torch.models.efficientnet import (EfficientNetBackbone, MBConvBlock,
-                                                            block_args)
+    from deepfake_vit_tpu_torch.models.efficientnet import EfficientNetBackbone
     from deepfake_vit_tpu_torch.models.layers import init_weights
     from deepfake_vit_tpu_torch.ops.image import normalize_imagenet
 
@@ -633,14 +702,7 @@ def check_fused(fs, fm, dev):
     del x, x_nchw, faces, got
 
     def block_case(label, variant, idx, h, B):
-        if variant == "b4":
-            blk, args = getattr(bb, f"block_{idx}"), bb.blocks[idx]
-        else:  # one block of a wider variant, seeded
-            args = block_args(variant)[idx]
-            blk = init_weights(MBConvBlock(**args), idx).to(dev).eval()
-        bp = fs.block_plan_from_args(args)
-        weights = fs.fold_block_weights(blk, bp)
-        x = torch.randn((B, h, h, bp.cin), generator=g).to(dev).to(torch.bfloat16)
+        blk, args, bp, weights, x = block_inputs(fs, bb, variant, idx, h, B, g, dev)
         if label == "run_block":
             run, run_plain = (lambda: fs.run_block(bp, x, weights),
                               lambda: fs.run_block_plain(bp, x, weights))
@@ -1064,7 +1126,12 @@ def main() -> None:
     pool_row = check_crop_pool(wk, frames_flat, A_inv, dev)
     del frames, frames_flat
     gemm_rows = check_int8_gemm(ik, dev)
-    conv_rows = check_int8_conv(ik, dev)
+    # The detector's convolutions as path A launches them in one served batch.
+    pipe_a = build_pipeline("A int8 headline")
+    convs, k_major = detector_conv_shapes(pipe_a.forward, seeded_batches(BATCH, 1, 7)[0])
+    if len(convs) != EXPECTED["A int8 headline"]["int8_conv"] or not k_major:
+        fail(f"path A launched {len(convs)} detector convolutions, K-major kernels {k_major}")
+    conv_rows = check_int8_conv(ik, dev, convs, k_major)
     stem_row, block_rows, proto_rows = check_fused(fs, fm, dev)
     torch.cuda.empty_cache()
 
@@ -1107,7 +1174,8 @@ def main() -> None:
                ik.int8_conv, fs.run_stem, fs.run_block, fm.fused_mbconv)
     if tuple(k.__name__ for k in kernels) != KERNEL_NAMES:
         fail("the counted kernels are not KERNEL_NAMES")
-    pipes = {path: build_pipeline(path) for path in EXPECTED}
+    pipes = {path: pipe_a if path == "A int8 headline" else build_pipeline(path)
+             for path in EXPECTED}
     paths = {path: {"launches_per_batch": expected, "rounds": [], "profile": []}
              for path, expected in EXPECTED.items()}
     for rnd, order in enumerate((list(EXPECTED), list(EXPECTED)[::-1])):
@@ -1187,6 +1255,8 @@ def main() -> None:
         if shapes is not None:
             out["max_abs_err"] = max(r["max_abs_err"] for r in shapes)
             out["shape"], out["shapes"] = m["shape"], shapes
+        if "batch" in m:  # int8_conv: sums over the detector's launches of a batch
+            out["batch"] = m["batch"]
         return out
 
     report = {"kernels": [

@@ -33,43 +33,46 @@
 // output once; e and d never leave the chip. Three launches per block.
 //
 // A block of 256 threads owns one tile of one image and walks the expanded
-// channels in chunks of 32 (one warp lane per channel): the input tile with
-// its halo is staged once in shared memory, the expand product is recomputed
-// on the halo ((8+k-1)^2 input pixels at stride 1, (14+k)^2 at stride 2),
-// the depthwise reads its neighbours from shared memory, and the projection
-// accumulates over the chunks in registers (pixel x 4 interleaved output
-// channels per thread). Any cout is taken: the projection's weights and
-// output tile are staged for one group of at most 192 output channels at a
-// time (b6's 200 and b7's 224 go in two), while the chunk's d stays in
-// shared memory across the groups. The two 1x1 products are f32 FMAs over bf16 values
-// widened to f32 when they are staged in shared memory: bf16 x bf16 is exact
-// in f32, so only the order of a sum differs from the plain PyTorch version
-// in ops/fused_stages.py. The
-// depthwise taps, the tile sums and the two squeeze-excite products use
-// separately rounded multiplies and adds (__fmul_rn / __fadd_rn: nvcc would
-// contract them to FMAs) in an order the plain version repeats, so that given
-// the same e both compute the same d and the same se bit for bit: a
-// difference in se's last bit would flip a bf16 rounding of d*se now and then,
-// and in the blocks without an expand conv one such term can be worth more
-// than two bf16 steps of a small output.
+// channels in chunks of 32: the input tile with its halo is staged once in
+// shared memory as bf16, as it lies in device memory, the expand product is
+// recomputed on the halo ((8+k-1)^2 input pixels at stride 1, (14+k)^2 at
+// stride 2), the depthwise reads its neighbours from shared memory (lane =
+// channel), and the projection accumulates over the chunks in registers. Both
+// 1x1 products run on the tensor cores, bf16 mma.sync.m16n8k16 with f32
+// accumulators: the expand takes the halo pixels (rows padded to 16) times
+// cin (padded with zeros to 16) times the chunk's 32 channels, one function
+// for both passes; the projection takes the 64 pixels of scaled d times the
+// chunk's 32 channels times a group of output channels, each warp a row tile
+// of 16 pixels and every other n8 tile. bf16 x bf16 is exact in f32, so only
+// the order of a sum differs from the plain PyTorch version in
+// ops/fused_stages.py. Any cout is taken: the projection's weights and output
+// tile are staged for one group of at most 192 output channels at a time
+// (b6's 200 and b7's 224 go in two), while the chunk's d stays in shared
+// memory across the groups. The depthwise taps, the tile sums and the two
+// squeeze-excite products use separately rounded multiplies and adds
+// (__fmul_rn / __fadd_rn: nvcc would contract them to FMAs) in an order the
+// plain version repeats, so that given the same e both compute the same d
+// and the same se bit for bit: a difference in se's last bit would flip a
+// bf16 rounding of d*se now and then, and in the blocks without an expand
+// conv one such term can be worth more than two bf16 steps of a small output.
 //
 // What bounds them on an H100: by bytes (input + output + weights once over
 // 3.35 TB/s) and by operations (multiply-adds x 2 over the 989 TFLOP/s bf16
 // tensor-core peak) every block shape here is bound at 4 to 34 microseconds
 // for 128 images, by bytes down to 48x48 maps and by operations below.
-// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, this first
-// version takes 4x its bound for the stem, 19x for a block without an expand
-// conv at 96x96, 120x to 230x for the expanding blocks at 96x96 to 24x24 and
-// 350x for the widest block at 14x14 on 32 images (128 tiles for 132 SMs).
-// It is bound by instruction issue, not by memory: scalar f32 FMAs fed by
-// 16-byte shared-memory loads (staging the operands as f32 instead of
-// unpacking bf16 in the inner loops made the 48x48 blocks 1.3x faster), the
-// expand computed twice and on a halo of 1.6x to 2.3x the tile, each chunk's
-// weights staged without overlap, and a precise expf and an IEEE division
-// per SiLU, which at 24 to 56 input channels is of the order of the
-// multiply-adds of the element it activates. mma.sync / wgmma products,
-// cp.async or TMA staging, larger tiles and a cluster sharing d through
-// distributed shared memory (one pass) are later work.
+// Measured by tools/kernel_times.py on an NVIDIA H100 80GB HBM3 at 700 W,
+// device time: 0.62 ms for the B4 block without an expand conv at 96x96
+// (18x its bound), 0.69-1.50 ms for the expanding blocks at 96x96 to 24x24
+// (67x-114x) and 0.52-0.82 ms for the widest at 14x14 on 32 images: 1.1x
+// (no expand conv) to 3.1x faster than the first version's FMAs on the CUDA
+// cores. They are bound by instruction issue on the CUDA cores, not by the
+// tensor cores: taking the projection's products away saves 3-9 %, while a
+// SiLU with __expf and __fdividef in place of the precise expf and IEEE
+// division saves 8-25 %
+// (tools/mma_variants.py); the rest is the depthwise taps, the halo of the
+// recomputed expand, staging and the second pass. A faster SiLU, larger
+// tiles, wgmma/TMA staging and a cluster sharing d through distributed
+// shared memory (one pass) are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,9 +87,9 @@ constexpr int NPIX = TILE * TILE;
 constexpr int CH = 32;               // expanded channels per chunk, one per lane
 constexpr int THREADS = 256;
 constexpr int NWARPS = THREADS / 32;
-constexpr int PB = 4;                // halo pixels per warp step of the expand
-constexpr int DROW = NPIX + 1;       // padded row of the scaled-d tile (conflict-free)
-constexpr int XPAD = 4;              // pad of an input-tile row: rows stay 16-byte aligned
+constexpr int KS = 16;               // K of one bf16 mma.sync step
+constexpr int ER = CH + 8;           // f32 row of e: fragment stores hit distinct banks
+constexpr int DR = CH + 8;           // bf16 row of scaled d and of a projection weight row
 constexpr int MAX_SMEM = 232448;     // 227 KB: the most one block can ask for
 constexpr int MAX_GROUP = 192;       // output channels of a projection group, at most
 
@@ -102,10 +105,21 @@ __device__ __forceinline__ uint32_t pack2(float a, float b) {
   __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<uint32_t*>(&h);
 }
-// Eight bf16 values widened to f32 (exact) and stored as two 16-byte words.
-__device__ __forceinline__ void widen8(float* dst, uint4 v) {
-  *reinterpret_cast<float4*>(dst) = make_float4(lo_f(v.x), hi_f(v.x), lo_f(v.y), hi_f(v.y));
-  *reinterpret_cast<float4*>(dst + 4) = make_float4(lo_f(v.z), hi_f(v.z), lo_f(v.w), hi_f(v.w));
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* smem_row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(smem_row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// c += a . b, one m16n8k16 bf16 product with f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------------------
@@ -185,15 +199,16 @@ struct BlockArgs {
   float* partials;      // (B, tiles, cexp), written by pass 1
   bf16* out;            // (B, Ho, Wo, cout), written by pass 2
   int H, W, Ho, Wo, cin, cexp, cout, k, stride, pad, tin, tiles_x, tiles;
+  int kpad;   // cin rounded up to KS: the expand's K, zero-padded
   int has_expand, residual;
   int gsize;  // output channels of a projection group (a multiple of 8, at most 192)
-  int sweep;  // output channels a pass-2 sweep accumulates in registers (4 * NJ at most)
+  int sweep;  // output channels a pass-2 sweep accumulates in registers (256 at most)
 };
 
-// Byte offsets of the shared-memory regions, each 16-byte aligned. Inputs,
-// weights and intermediates are staged as f32 (widened once, when staged) so
-// that the inner loops spend no instruction on unpacking bf16; values that
-// the block rounds to bf16 are rounded before they are stored.
+// Byte offsets of the shared-memory regions, each 16-byte aligned. The mma
+// operands (the input tile, the chunk's expand weights, scaled d and the
+// group's projection weights) are bf16, staged as they lie in device memory;
+// e and the depthwise taps are f32.
 struct SmemLayout {
   size_t x, e, wexp, taps, vecs, red, inside, d, wproj, out, total;
 };
@@ -201,20 +216,21 @@ struct SmemLayout {
 inline size_t align16(size_t v) { return (v + 15) & ~(size_t)15; }
 
 SmemLayout smem_layout(const BlockArgs& a, int pass) {
-  const size_t npin = (size_t)a.tin * a.tin;
+  const size_t npin = (size_t)a.tin * a.tin, mrows = (npin + 15) / 16 * 16;
+  const size_t xrow = a.kpad + 8;  // bf16 row: ldmatrix rows hit distinct banks
   SmemLayout s;
   size_t off = 0;
-  s.x = off;      off = align16(off + npin * (a.cin + XPAD) * 4);
-  s.e = off;      off = align16(off + npin * CH * 4);
-  s.wexp = off;   off = align16(off + (size_t)a.cin * CH * 4);
+  s.x = off;      off = align16(off + mrows * xrow * 2);
+  s.e = off;      off = align16(off + npin * ER * 4);
+  s.wexp = off;   off = align16(off + CH * xrow * 2);
   s.taps = off;   off = align16(off + (size_t)a.k * a.k * CH * 4);
   s.vecs = off;   off = align16(off + 3 * CH * 4);
   s.red = off;    off = align16(off + NWARPS * CH * 4);
   s.inside = off; off = align16(off + npin);
   s.d = s.wproj = s.out = off;
   if (pass == 2) {
-    s.d = off;     off = align16(off + (size_t)CH * DROW * 4);
-    s.wproj = off; off = align16(off + (size_t)a.gsize * CH * 4);
+    s.d = off;     off = align16(off + (size_t)NPIX * DR * 2);
+    s.wproj = off; off = align16(off + (size_t)a.gsize * DR * 2);
     s.out = off;   off = align16(off + (size_t)NPIX * (a.gsize + 2) * 2);
   }
   s.total = off;
@@ -222,43 +238,100 @@ SmemLayout smem_layout(const BlockArgs& a, int pass) {
 }
 
 // Stage the projection weights of output channels [g0, g0 + gn) for the
-// chunk's expanded channels [c0, c0 + cn), widened to f32: wprojS[co - g0][c].
-__device__ __forceinline__ void stage_wproj(float* wprojS, const bf16* w_proj, int cexp, int g0,
+// chunk's expanded channels [c0, c0 + cn) as bf16 rows, zero beyond cn:
+// wprojS[co - g0][c].
+__device__ __forceinline__ void stage_wproj(bf16* wprojS, const bf16* w_proj, int cexp, int g0,
                                             int gn, int c0, int cn) {
-  for (int idx = threadIdx.x; idx < gn * CH; idx += THREADS) {
-    const int c = idx & (CH - 1), co = idx / CH;
-    wprojS[idx] = c < cn ? __bfloat162float(w_proj[(size_t)(g0 + co) * cexp + c0 + c]) : 0.0f;
+  for (int idx = threadIdx.x; idx < gn * (CH / 8); idx += THREADS) {
+    const int v = idx & (CH / 8 - 1), co = idx / (CH / 8);
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (v * 8 < cn)
+      val = *reinterpret_cast<const uint4*>(w_proj + (size_t)(g0 + co) * cexp + c0 + v * 8);
+    *reinterpret_cast<uint4*>(wprojS + co * DR + v * 8) = val;
+  }
+}
+
+// e of the chunk's CH expanded channels on the haloed tile, into eS[p][c]:
+// bf16(silu(W_exp x + b_exp)) (PROTO: kept f32), zero outside the image and
+// for channels c >= cn. bf16 mma.sync m16n8k16 with f32 accumulators: A =
+// the staged input pixels (rows padded to 16, K = cin padded to kpad with
+// zeros), B = the chunk's W_exp rows; warp w takes the m16 row tiles w,
+// w + 8, ... and all four n8 tiles. Pass 1 and pass 2 call this one
+// function on one layout (the regions before d), so they compute e, and so
+// d, bit for bit alike.
+template <bool PROTO>
+__device__ __forceinline__ void expand_chunk(const bf16* xS, const bf16* wexpS,
+                                             const float* bexpS, const unsigned char* insideS,
+                                             float* eS, int npin, int xrow, int ksteps, int cn) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  // ldmatrix row addresses: A rows mt*16 + (lane & 15), K halves by lane >> 4;
+  // B rows (channels) 0-15 (+16 for n8 tiles 2-3), K halves by (lane >> 3) & 1.
+  const bf16* brow = wexpS + (size_t)(((lane >> 4) << 3) + (lane & 7)) * xrow +
+                     ((lane >> 3) & 1) * 8;
+  for (int mt = warp; mt < (npin + 15) / 16; mt += NWARPS) {
+    const bf16* arow = xS + (size_t)(mt * 16 + (lane & 15)) * xrow + (lane >> 4) * 8;
+    float acc[4][4] = {};
+    for (int ks = 0; ks < ksteps; ++ks) {
+      unsigned af[4], b01[4], b23[4];
+      ldmatrix_x4(af, arow + ks * KS);
+      ldmatrix_x4(b01, brow + ks * KS);
+      ldmatrix_x4(b23, brow + 16 * xrow + ks * KS);
+      mma_bf16(acc[0], af, b01[0], b01[1]);
+      mma_bf16(acc[1], af, b01[2], b01[3]);
+      mma_bf16(acc[2], af, b23[0], b23[1]);
+      mma_bf16(acc[3], af, b23[2], b23[3]);
+    }
+    // Fragment acc[nt][2h + j]: pixel mt*16 + 8h + g, channel nt*8 + 2*t4 + j.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = mt * 16 + 8 * h + g;
+      if (p >= npin) continue;
+      const bool inside = insideS[p];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int c = nt * 8 + 2 * t4;  // cn is a multiple of 8: c and c + 1 live alike
+        const bool on = inside && c < cn;
+        float v0 = on ? silu_f(acc[nt][2 * h] + bexpS[c]) : 0.0f;
+        float v1 = on ? silu_f(acc[nt][2 * h + 1] + bexpS[c + 1]) : 0.0f;
+        if (!PROTO) {
+          v0 = bf16_round(v0);
+          v1 = bf16_round(v1);
+        }
+        *reinterpret_cast<float2*>(eS + (size_t)p * ER + c) = make_float2(v0, v1);
+      }
+    }
   }
 }
 
 // PASS 1: per-tile channel sums of d into a.partials. PASS 2: the block's
-// output tile. NJ: output channels per thread of the projection (4 * NJ >=
+// output tile. NJ: n8 tiles of the projection per warp (2 * NJ * 8 >=
 // a.sweep). PROTO: the prototype's rounding points.
 //
-// Pass 2 accumulates the projection of a sweep of output channels in
-// registers (thread: pixel pp, channels s0 + cg + 4j). A sweep is all of
-// cout up to 256 channels (beyond, one group a sweep, and e and d are
-// recomputed for each). Within a sweep the output channels go in groups of
-// at most 192 (a.gsize): only one group's projection weights and output
-// tile are in shared memory at a time, while the chunk's scaled d stays
-// there across the groups. Each output channel still sums over cexp in
-// chunk order, so the grouping changes no bit; one group (cout <= 192) is
-// the single-group code path.
+// Pass 2 projects with bf16 mma.sync m16n8k16: warp w owns the 16 pixels of
+// row tile w & 3 and the sweep's n8 tiles 2j + (w >> 2), whose f32
+// accumulators stay in registers across the chunks. A sweep is all of cout
+// up to 256 channels (beyond, one group a sweep, and e and d are recomputed
+// for each). Within a sweep the output channels go in groups of at most 192
+// (a.gsize): only one group's projection weights and output tile are in
+// shared memory at a time, while the chunk's scaled d stays there across the
+// groups. Each output channel still sums over cexp in chunk order, so the
+// grouping changes no bit.
 template <int PASS, int NJ, bool PROTO>
 __global__ void __launch_bounds__(THREADS)
 fused_block_pass_kernel(BlockArgs a, SmemLayout L) {
   extern __shared__ __align__(16) unsigned char block_smem[];
-  float* xS = reinterpret_cast<float*>(block_smem + L.x);          // [npin][cin + XPAD]
-  float* eS = reinterpret_cast<float*>(block_smem + L.e);          // [npin][CH]
-  float4* wexpS = reinterpret_cast<float4*>(block_smem + L.wexp);  // [cin/4][CH], 4 inputs each
+  bf16* xS = reinterpret_cast<bf16*>(block_smem + L.x);            // [rows to 16][kpad + 8]
+  float* eS = reinterpret_cast<float*>(block_smem + L.e);          // [npin][ER]
+  bf16* wexpS = reinterpret_cast<bf16*>(block_smem + L.wexp);      // [CH][kpad + 8]
   float* tapsS = reinterpret_cast<float*>(block_smem + L.taps);    // [k*k][CH]
   float* bexpS = reinterpret_cast<float*>(block_smem + L.vecs);    // [CH]
   float* bdwS = bexpS + CH;
   float* seS = bdwS + CH;
   float* redS = reinterpret_cast<float*>(block_smem + L.red);      // [NWARPS][CH]
   unsigned char* insideS = block_smem + L.inside;                  // [npin]: pixel is on the image
-  float* dS = reinterpret_cast<float*>(block_smem + L.d);          // [CH][DROW]
-  float* wprojS = reinterpret_cast<float*>(block_smem + L.wproj);  // [gsize][CH]
+  bf16* dS = reinterpret_cast<bf16*>(block_smem + L.d);            // [NPIX][DR]
+  bf16* wprojS = reinterpret_cast<bf16*>(block_smem + L.wproj);    // [gsize][DR]
   bf16* outS = reinterpret_cast<bf16*>(block_smem + L.out);        // [NPIX][gsize + 2]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -266,50 +339,49 @@ fused_block_pass_kernel(BlockArgs a, SmemLayout L) {
   const int oy0 = (tile / a.tiles_x) * TILE, ox0 = (tile % a.tiles_x) * TILE;
   const int iy0 = oy0 * a.stride - a.pad, ix0 = ox0 * a.stride - a.pad;
   const int tin = a.tin, npin = tin * tin;
-  const int xrow = a.cin + XPAD;
+  const int xrow = a.kpad + 8;
   const int S = a.stride, k = a.k;
 
-  // 1. The input tile with its halo, zero outside the image.
+  // 1. The input tile with its halo as bf16, zero outside the image, in the
+  //    rows that pad it to whole m16 tiles and in the channels up to kpad.
   {
-    const int vpp = a.cin / 8;
+    const int vpr = a.kpad / 8, vin = a.cin / 8;
     const bf16* xb = a.x + (size_t)bi * a.H * a.W * a.cin;
-    for (int idx = tid; idx < npin * vpp; idx += THREADS) {
-      const int p = idx / vpp, v = idx - p * vpp;
+    for (int idx = tid; idx < (npin + 15) / 16 * 16 * vpr; idx += THREADS) {
+      const int p = idx / vpr, v = idx - p * vpr;
       const int iy = iy0 + p / tin, ix = ix0 + p % tin;
-      const bool inside = iy >= 0 && iy < a.H && ix >= 0 && ix < a.W;
+      const bool inside = p < npin && iy >= 0 && iy < a.H && ix >= 0 && ix < a.W;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (inside)
+      if (inside && v < vin)
         val = *reinterpret_cast<const uint4*>(xb + ((size_t)iy * a.W + ix) * a.cin + v * 8);
-      widen8(xS + (size_t)p * xrow + v * 8, val);
-      if (v == 0) insideS[p] = inside;
+      *reinterpret_cast<uint4*>(xS + (size_t)p * xrow + v * 8) = val;
+      if (v == 0 && p < npin) insideS[p] = inside;
     }
   }
 
-  const int pp = tid & (NPIX - 1);  // projection: this thread's pixel ...
-  const int cg = tid >> 6;          // ... and its output channels s0 + cg + 4 j
+  const int pm = warp & 3, ph = warp >> 2;  // projection: row tile, n8 tile parity
+  const int g = lane >> 2, t4 = lane & 3;
   const int sweeps_end = PASS == 2 ? a.cout : 1;  // pass 1 makes one trip
   for (int s0 = 0; s0 < sweeps_end; s0 += a.sweep) {
     const int send = min(s0 + a.sweep, a.cout);  // this sweep's channels: [s0, send)
-    float acc[NJ];
+    float acc[NJ][4];
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[j] = 0.0f;
+    for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
 
     for (int c0 = 0; c0 < a.cexp; c0 += CH) {
       const int cn = min(CH, a.cexp - c0);
       const bool live = lane < cn;
 
-      // 2. This chunk's weights, widened to f32.
+      // 2. This chunk's weights: the expand rows as bf16, zero beyond cn and
+      //    cin.
       if (a.has_expand) {
-        const int nq = a.cin / 8;
-        const uint4* wsrc = reinterpret_cast<const uint4*>(a.w_exp + (size_t)c0 * a.cin);
-        float* w = reinterpret_cast<float*>(wexpS);
-        for (int idx = tid; idx < CH * nq; idx += THREADS) {
-          const int c = idx & (CH - 1), kq = idx / CH;
-          const uint4 v = c < cn ? wsrc[(size_t)c * nq + kq] : make_uint4(0u, 0u, 0u, 0u);
-          *reinterpret_cast<float4*>(w + ((size_t)(2 * kq) * CH + c) * 4) =
-              make_float4(lo_f(v.x), hi_f(v.x), lo_f(v.y), hi_f(v.y));
-          *reinterpret_cast<float4*>(w + ((size_t)(2 * kq + 1) * CH + c) * 4) =
-              make_float4(lo_f(v.z), hi_f(v.z), lo_f(v.w), hi_f(v.w));
+        const int vpr = a.kpad / 8, vin = a.cin / 8;
+        for (int idx = tid; idx < CH * vpr; idx += THREADS) {
+          const int c = idx / vpr, v = idx - c * vpr;
+          uint4 val = make_uint4(0u, 0u, 0u, 0u);
+          if (c < cn && v < vin)
+            val = *reinterpret_cast<const uint4*>(a.w_exp + (size_t)(c0 + c) * a.cin + v * 8);
+          *reinterpret_cast<uint4*>(wexpS + (size_t)c * xrow + v * 8) = val;
         }
       }
       for (int idx = tid; idx < k * k * CH; idx += THREADS) {
@@ -325,47 +397,14 @@ fused_block_pass_kernel(BlockArgs a, SmemLayout L) {
       if (PASS == 2) stage_wproj(wprojS, a.w_proj, a.cexp, s0, min(a.gsize, send - s0), c0, cn);
       __syncthreads();
 
-      // 3. e on the haloed tile: lane = channel, each warp PB pixels a step.
+      // 3. e on the haloed tile.
       if (a.has_expand) {
-        // Four input channels a step: one 16-byte load of this lane's weights
-        // and one 16-byte broadcast load per pixel feed 4 FMAs per pixel,
-        // summed in channel order.
-        const int n4 = a.cin / 4;
-        const float4* xS4 = reinterpret_cast<const float4*>(xS);
-        const int xrow4 = xrow / 4;
-        for (int p0 = warp * PB; p0 < npin; p0 += NWARPS * PB) {
-          float ae[PB];
-          const float4* xr[PB];
-#pragma unroll
-          for (int i = 0; i < PB; ++i) {
-            ae[i] = 0.0f;
-            xr[i] = xS4 + (size_t)min(p0 + i, npin - 1) * xrow4;
-          }
-          for (int k4 = 0; k4 < n4; ++k4) {
-            const float4 wv = wexpS[k4 * CH + lane];
-#pragma unroll
-            for (int i = 0; i < PB; ++i) {
-              const float4 xv = xr[i][k4];
-              ae[i] = fmaf(wv.x, xv.x, ae[i]);
-              ae[i] = fmaf(wv.y, xv.y, ae[i]);
-              ae[i] = fmaf(wv.z, xv.z, ae[i]);
-              ae[i] = fmaf(wv.w, xv.w, ae[i]);
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < PB; ++i) {
-            const int p = p0 + i;
-            if (p < npin) {
-              float v = (insideS[p] && live) ? silu_f(ae[i] + bexpS[lane]) : 0.0f;
-              if (!PROTO) v = bf16_round(v);
-              eS[(size_t)p * CH + lane] = v;
-            }
-          }
-        }
+        expand_chunk<PROTO>(xS, wexpS, bexpS, insideS, eS, npin, xrow, a.kpad / KS, cn);
       } else {
         for (int idx = tid; idx < npin * CH; idx += THREADS) {
           const int c = idx & (CH - 1), p = idx / CH;
-          eS[idx] = c < cn ? xS[(size_t)p * xrow + c0 + c] : 0.0f;
+          eS[(size_t)p * ER + c] =
+              c < cn ? __bfloat162float(xS[(size_t)p * xrow + c0 + c]) : 0.0f;
         }
       }
       __syncthreads();
@@ -380,12 +419,12 @@ fused_block_pass_kernel(BlockArgs a, SmemLayout L) {
 #pragma unroll
         for (int xo = 0; xo < TILE; ++xo) ad[xo] = 0.0f;
         for (int dy = 0; dy < k; ++dy) {
-          const float* erow = eS + (size_t)(S * yo + dy) * tin * CH + lane;
+          const float* erow = eS + (size_t)(S * yo + dy) * tin * ER + lane;
           for (int dx = 0; dx < k; ++dx) {
             const float tap = tapsS[(dy * k + dx) * CH + lane];
 #pragma unroll
             for (int xo = 0; xo < TILE; ++xo)
-              ad[xo] = __fadd_rn(ad[xo], __fmul_rn(erow[(S * xo + dx) * CH], tap));
+              ad[xo] = __fadd_rn(ad[xo], __fmul_rn(erow[(S * xo + dx) * ER], tap));
           }
         }
 #pragma unroll
@@ -395,7 +434,7 @@ fused_block_pass_kernel(BlockArgs a, SmemLayout L) {
           float db = bf16_round(d);
           if (!valid) { d = 0.0f; db = 0.0f; }
           dsum += PROTO ? db : d;
-          if (PASS == 2) dS[lane * DROW + yo * TILE + xo] = bf16_round(db * seS[lane]);
+          if (PASS == 2) dS[(yo * TILE + xo) * DR + lane] = __float2bfloat16_rn(db * seS[lane]);
         }
       }
 
@@ -411,32 +450,29 @@ fused_block_pass_kernel(BlockArgs a, SmemLayout L) {
         }
       } else {
         __syncthreads();
-        // 5. Projection, accumulated over the chunks, group by group. Four
-        //    expanded channels a step (cn is a multiple of 8): four values of
-        //    d and one 16-byte broadcast load of weights per output channel.
+        // 5. Projection, accumulated over the chunks, group by group: A =
+        //    this warp's 16 pixels of scaled d (two k16 steps over the chunk;
+        //    zero beyond cn), B = the group's W_proj rows.
+        unsigned da[2][4];
+        const bf16* drow = dS + (pm * 16 + (lane & 15)) * DR + (lane >> 4) * 8;
+        ldmatrix_x4(da[0], drow);
+        ldmatrix_x4(da[1], drow + KS);
         for (int g0 = s0;;) {
           const int gn = min(a.gsize, send - g0);
-          const int jlo = (g0 - s0) / 4, jhi = (g0 - s0 + gn) / 4;  // this group's j
-          for (int c = 0; c < cn; c += 4) {
-            const float d0 = dS[(c + 0) * DROW + pp];
-            const float d1 = dS[(c + 1) * DROW + pp];
-            const float d2 = dS[(c + 2) * DROW + pp];
-            const float d3 = dS[(c + 3) * DROW + pp];
+          const int t_lo = (g0 - s0) / 8, t_hi = (g0 - s0 + gn) / 8;  // this group's n8 tiles
 #pragma unroll
-            for (int j = 0; j < NJ; ++j) {
-              if (j >= jlo && j < jhi) {
-                const int co = s0 + cg + 4 * j;
-                const float4 wv = *reinterpret_cast<const float4*>(wprojS + (co - g0) * CH + c);
-                acc[j] = fmaf(wv.x, d0, acc[j]);
-                acc[j] = fmaf(wv.y, d1, acc[j]);
-                acc[j] = fmaf(wv.z, d2, acc[j]);
-                acc[j] = fmaf(wv.w, d3, acc[j]);
-              }
+          for (int j = 0; j < NJ; ++j) {
+            const int nt = 2 * j + ph;
+            if (nt >= t_lo && nt < t_hi) {
+              unsigned b[4];  // k16 step 0: b[0], b[1]; step 1: b[2], b[3]
+              ldmatrix_x4(b, wprojS + ((nt - t_lo) * 8 + (lane & 7)) * DR + (lane >> 3) * 8);
+              mma_bf16(acc[j], da[0], b[0], b[1]);
+              mma_bf16(acc[j], da[1], b[2], b[3]);
             }
           }
           g0 += gn;
           if (g0 >= send) break;
-          __syncthreads();  // every thread is done with the previous group's weights
+          __syncthreads();  // every warp is done with the previous group's weights
           stage_wproj(wprojS, a.w_proj, a.cexp, g0, min(a.gsize, send - g0), c0, cn);
           __syncthreads();
         }
@@ -447,18 +483,31 @@ fused_block_pass_kernel(BlockArgs a, SmemLayout L) {
     if (PASS == 2) {
       // 6. + bias (+ residual), round, and write the tile group by group
       //    through shared memory so that device memory sees 16-byte stores.
-      const int yo = pp / TILE, xo = pp % TILE;
+      //    Fragment acc[j][2h + i]: pixel pm*16 + 8h + g, channel
+      //    s0 + (2j + ph)*8 + 2*t4 + i.
       for (int g0 = s0; g0 < send; g0 += a.gsize) {
         const int gn = min(a.gsize, send - g0);
-        const int jlo = (g0 - s0) / 4, jhi = (g0 - s0 + gn) / 4;
+        const int t_lo = (g0 - s0) / 8, t_hi = (g0 - s0 + gn) / 8;
         const int orow = gn + 2;
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          if (j >= jlo && j < jhi) {
-            const int co = s0 + cg + 4 * j;
-            float v = acc[j] + a.b_proj[co];
-            if (a.residual) v += xS[((size_t)(yo + a.pad) * tin + xo + a.pad) * xrow + co];
-            outS[pp * orow + co - g0] = __float2bfloat16_rn(v);
+          const int nt = 2 * j + ph;
+          if (nt >= t_lo && nt < t_hi) {
+            const int co = s0 + nt * 8 + 2 * t4;
+            const float b0 = a.b_proj[co], b1 = a.b_proj[co + 1];
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int pp = pm * 16 + 8 * h + g;
+              float v0 = acc[j][2 * h] + b0, v1 = acc[j][2 * h + 1] + b1;
+              if (a.residual) {
+                const int hp = (pp / TILE + a.pad) * tin + pp % TILE + a.pad;
+                const uint32_t r =
+                    *reinterpret_cast<const uint32_t*>(xS + (size_t)hp * xrow + co);
+                v0 += lo_f(r);
+                v1 += hi_f(r);
+              }
+              *reinterpret_cast<uint32_t*>(outS + pp * orow + co - g0) = pack2(v0, v1);
+            }
           }
         }
         __syncthreads();
@@ -535,16 +584,17 @@ cudaError_t run_block(BlockArgs a, const float* w_se1, const float* b_se1, const
   a.tin = a.stride * (TILE - 1) + a.k;
   a.tiles_x = (a.Wo + TILE - 1) / TILE;
   a.tiles = a.tiles_x * ((a.Ho + TILE - 1) / TILE);
+  a.kpad = (a.cin + KS - 1) / KS * KS;
   a.se = se;
   if ((a.k != 3 && a.k != 5) || (a.stride != 1 && a.stride != 2) || a.cin % 8 || a.cexp % 8 ||
       a.cout % 8 || a.cout < 8 || (a.stride == 2 && (a.H % 2 || a.W % 2)) || B < 1 || B > 65535)
     return cudaErrorInvalidValue;
   // Projection groups of at most MAX_GROUP channels, as even as multiples of
-  // 8 allow (200 -> 104 + 96, 224 -> 112 + 112); one sweep up to 4 * 64
+  // 8 allow (200 -> 104 + 96, 224 -> 112 + 112); one sweep up to 256
   // channels, else one group a sweep (block_smem_bytes mirrors this).
   const int groups = (a.cout + MAX_GROUP - 1) / MAX_GROUP;
   a.gsize = ((a.cout + groups - 1) / groups + 7) / 8 * 8;
-  a.sweep = a.cout <= 4 * 64 ? a.cout : a.gsize;
+  a.sweep = a.cout <= 256 ? a.cout : a.gsize;
 
   cudaError_t err = launch_pass<1, 1, PROTO>(a, B, st);
   if (err != cudaSuccess) return err;
@@ -552,11 +602,12 @@ cudaError_t run_block(BlockArgs a, const float* w_se1, const float* b_se1, const
       a.partials, w_se1, b_se1, w_se2, b_se2, se, a.tiles, a.cexp, cse, a.Ho * a.Wo);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  if (a.sweep <= 32) return launch_pass<2, 8, PROTO>(a, B, st);
-  if (a.sweep <= 64) return launch_pass<2, 16, PROTO>(a, B, st);
-  if (a.sweep <= 128) return launch_pass<2, 32, PROTO>(a, B, st);
-  if (a.sweep <= 192) return launch_pass<2, 48, PROTO>(a, B, st);
-  return launch_pass<2, 64, PROTO>(a, B, st);
+  // Two warps share a row tile, each with every other n8 tile of the sweep.
+  if (a.sweep <= 32) return launch_pass<2, 2, PROTO>(a, B, st);
+  if (a.sweep <= 64) return launch_pass<2, 4, PROTO>(a, B, st);
+  if (a.sweep <= 128) return launch_pass<2, 8, PROTO>(a, B, st);
+  if (a.sweep <= 192) return launch_pass<2, 12, PROTO>(a, B, st);
+  return launch_pass<2, 16, PROTO>(a, B, st);
 }
 
 BlockArgs block_args(const void* x, const void* w_exp, const void* b_exp, const void* taps,

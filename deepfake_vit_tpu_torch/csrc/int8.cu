@@ -18,194 +18,56 @@
 // operations against 1280 bytes an output pixel) they are bound by
 // operations, below that by bytes.
 //
-// The GEMM (int8_gemm_mma_kernel) runs on the tensor cores: a block
-// computes a 128 x 128 or 128 x 64 output tile (int8_gemm_plan in
-// ops/int8_kernel.py picks 128 x 128 where it makes at least two blocks per
-// SM, else 128 x 64), each warp a 64 x 32 sub-tile as 4 x 4
+// Both run one tile product on the tensor cores (tile_product): a block
+// computes a BM x BN output tile, each warp a 64 x 32 sub-tile as 4 x 4
 // mma.sync.m16n8k32 s8 products with fragments from shared memory through
-// ldmatrix. A and the weights, kept K-major (N, K) by the caller, stream in
-// 64-byte K steps through a three-stage cp.async pipeline, 16-, 8- or
-// 4-byte copies by K's alignment (K = 56 rows are 8-byte aligned only);
-// ragged K steps, M and N tiles read zeros. The epilogue dequantizes in
-// registers and stores straight from the fragments with the evict-first
-// hint: each store instruction of a warp writes whole 32-byte sectors.
-// Tiles run column tile fastest, so the blocks in flight cover whole output
-// rows. Staging the output tile in shared memory for 16-byte stores, a
-// persistent grid that prefetches its next tile under the stores, deeper
-// pipelines and 128-byte K steps measured no faster on the tail's shapes.
-// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, device
-// time: 0.051 ms at (73728, 56) x (56, 336), 1.7x its bound; 0.041 ms at
-// (18432, 160) x (160, 960), 1.9x its bound and 1.8x a plain fill of the
-// output; 0.032-0.034 ms at (4608, 2688) x (2688, 448), 5x its bound, 340
-// TOP/s of mma.sync with two 4-warp blocks on most SMs. torch._int_mm on the
-// same K-major operands takes 0.069, 0.033 and 0.025 ms; wgmma with TMA, or
-// split K for the last shape, is the next step.
+// ldmatrix; A and the weights, kept K-major by the caller, stream in 64-byte
+// K steps through a three-stage cp.async pipeline, 16-, 8- or 4-byte copies
+// by the alignment of K (GEMM) or Cin (convolution); ragged K steps, M and N
+// tiles read zeros. The epilogue dequantizes in registers and stores
+// straight from the fragments with the evict-first hint: each store
+// instruction of a warp writes whole 32-byte sectors. Tiles run column tile
+// fastest, so the blocks in flight cover whole output rows.
 //
-// The convolution is still the first version: one 64 x 64 tile of 256
-// threads on the integer pipes (__dp4a, four s8 products an instruction),
-// K walked in steps of 32 s8 values, A (the (batch, row, column) of an
-// output pixel whose k index walks the kernel taps and input channels of an
-// NHWC image: implicit GEMM, no im2col tensor, padding taps read as zero)
-// and B ((K, N) row-major, transposed in registers with __byte_perm) staged
-// as words of four consecutive-k values; 8x to 44x its bounds (PERF.md).
-// Its mma.sync / wgmma redesign is later work.
+// The GEMM (int8_gemm_mma_kernel) takes 128 x 128 or 128 x 64 tiles
+// (int8_gemm_plan in ops/int8_kernel.py picks 128 x 128 where it makes at
+// least two blocks per SM). Staging the output tile in shared memory for
+// 16-byte stores, a persistent grid that prefetches its next tile under the
+// stores, deeper pipelines and 128-byte K steps measured no faster on the
+// tail's shapes. Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at
+// 700 W, device time: 0.051 ms at (73728, 56) x (56, 336), 1.7x its bound;
+// 0.041 ms at (18432, 160) x (160, 960), 1.9x its bound and 1.8x a plain
+// fill of the output; 0.032-0.034 ms at (4608, 2688) x (2688, 448), 5x its
+// bound, 340 TOP/s of mma.sync with two 4-warp blocks on most SMs.
+// torch._int_mm on the same K-major operands takes 0.069, 0.033 and 0.025
+// ms; wgmma with TMA, or split K for the last shape, is the next step.
+//
+// The convolution (int8_conv_kernel) is an implicit GEMM on the same tile
+// product: row m is an output pixel, its K steps are copied straight from
+// the NHWC image through a per-block row table, padding taps are zero-fill
+// copies, no im2col tensor exists. int8_conv_plan picks 512 x 32 tiles for
+// Cout 32, 512 x 64 for the one-step 1x1 convolutions, 256 x 64 otherwise
+// and 128 x 64 where those leave SMs idle: at the detector's shapes the
+// larger blocks measured faster than 128 x 64 (tools/mma_variants.py: 1.02
+// against 1.21 ms a batch); 4 stages or plain stores changed it by 1 % or
+// less either way.
+// Measured by tools/kernel_times.py on an NVIDIA H100 80GB HBM3 at 700 W,
+// device time at B = 128: 0.134 ms at 160^2 32->32 s2 and 0.060 ms at 40^2
+// 64->64, 2.1x and 3.1x their bytes; 1.02 ms for the detector's 25 launches
+// of a batch against a summed bound of 0.33 ms and the first version's
+// 4.45 ms. The 10^2 and 20^2 3x3 shapes stay at 4.3x-7.4x: 100-400 blocks
+// for 132 SMs and, at 256 -> 256 channels, mma.sync's share of the int8
+// peak; wgmma and split K are the next step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-// The convolution's tile.
-constexpr int BM = 64;       // output rows per block
-constexpr int BN = 64;       // output columns per block
-constexpr int BK4 = 8;       // K step in packed words (32 s8 values)
-constexpr int kThreads = 256;  // 16 x 16 threads, a 4 x 4 patch each
-constexpr int kPad = 4;      // keeps tile rows 16-byte aligned, stores conflict-free
-
-// A operand of the convolution: output pixel m = (b, ho, wo) of an NHWC s8
-// image; k = (tap_row * ksize + tap_col) * Cin + c, the HWIO kernel's own
-// flattening, so the B operand is the kernel read as a (K, Cout) matrix.
-struct ConvA {
-  const int8_t* x;
-  int M, H, W, Cin, ksize, stride, pad_t, pad_l, Ho, Wo, K;
-  struct Row {
-    const int8_t* img;
-    int hi0, wi0;
-    bool ok;
-  };
-  __device__ Row row(int m) const {
-    const bool ok = m < M;
-    const int mm = ok ? m : 0;
-    const int b = mm / (Ho * Wo);
-    const int rem = mm - b * (Ho * Wo);
-    const int ho = rem / Wo;
-    const int wo = rem - ho * Wo;
-    return {x + (size_t)b * H * W * Cin, ho * stride - pad_t, wo * stride - pad_l, ok};
-  }
-  __device__ int load(const Row& r, int k) const {
-    if (!r.ok || k >= K) return 0;
-    const int tap = k / Cin;
-    const int c = k - tap * Cin;
-    const int kr = tap / ksize;
-    const int hi = r.hi0 + kr;
-    const int wi = r.wi0 + (tap - kr * ksize);
-    if (hi < 0 || hi >= H || wi < 0 || wi >= W) return 0;  // padding reads as zero
-    return *reinterpret_cast<const int*>(r.img + ((size_t)hi * W + wi) * Cin + c);
-  }
-};
-
-// The convolution's tile product:
-// out[m, n] = (f32(sum_k A[m, k] * wq[k, n]) * sx[m / rows_per_scale]) * sw[n] + bias[n]
-template <class A>
-__device__ __forceinline__ void int8_tile_product(
-    const A a, const int8_t* __restrict__ wq, const float* __restrict__ sx,
-    const float* __restrict__ sw, const float* __restrict__ bias,
-    float* __restrict__ out, int M, int K, int N, int rows_per_scale) {
-  __shared__ __align__(16) int As[BK4][BM + kPad];
-  __shared__ __align__(16) int Bs[BK4][BN + kPad];
-
-  const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-
-  // Loader roles. A: word a_k4 of rows a_m and a_m + 32. B (threads 0..127):
-  // rows 4*b_k4..+3 of wq, columns b_n..b_n+3, transposed to four words.
-  const int a_k4 = t % BK4, a_m = t / BK4;
-  const typename A::Row row0 = a.row(m0 + a_m), row1 = a.row(m0 + a_m + 32);
-  const int b_k4 = t / 16, b_nl = 4 * (t % 16), b_n = n0 + b_nl;
-
-  int acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += 4 * BK4) {
-    As[a_k4][a_m] = a.load(row0, k0 + 4 * a_k4);
-    As[a_k4][a_m + 32] = a.load(row1, k0 + 4 * a_k4);
-    if (t < 16 * BK4) {
-      const int k = k0 + 4 * b_k4;
-      int r0 = 0, r1 = 0, r2 = 0, r3 = 0;
-      if (k < K && b_n < N) {  // K and N are multiples of 4: whole words
-        const int8_t* p = wq + (size_t)k * N + b_n;
-        r0 = *reinterpret_cast<const int*>(p);
-        r1 = *reinterpret_cast<const int*>(p + N);
-        r2 = *reinterpret_cast<const int*>(p + 2 * (size_t)N);
-        r3 = *reinterpret_cast<const int*>(p + 3 * (size_t)N);
-      }
-      // 4 x 4 byte transpose: word j holds column b_n + j at k..k+3.
-      const int lo01 = __byte_perm(r0, r1, 0x5140), hi01 = __byte_perm(r0, r1, 0x7362);
-      const int lo23 = __byte_perm(r2, r3, 0x5140), hi23 = __byte_perm(r2, r3, 0x7362);
-      *reinterpret_cast<int4*>(&Bs[b_k4][b_nl]) =
-          make_int4(__byte_perm(lo01, lo23, 0x5410), __byte_perm(lo01, lo23, 0x7632),
-                    __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632));
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k4 = 0; k4 < BK4; ++k4) {
-      const int4 av = *reinterpret_cast<const int4*>(&As[k4][4 * ty]);
-      const int4 bv = *reinterpret_cast<const int4*>(&Bs[k4][4 * tx]);
-      const int aa[4] = {av.x, av.y, av.z, av.w};
-      const int bb[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(aa[i], bb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  const int n = n0 + 4 * tx;
-  if (n >= N) return;
-  const float4 w4 = *reinterpret_cast<const float4*>(sw + n);
-  float4 b4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (bias != nullptr) b4 = *reinterpret_cast<const float4*>(bias + n);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + 4 * ty + i;
-    if (m >= M) continue;
-    const float s = sx[m / rows_per_scale];
-    float4 v;
-    v.x = __fmul_rn(__fmul_rn((float)acc[i][0], s), w4.x);
-    v.y = __fmul_rn(__fmul_rn((float)acc[i][1], s), w4.y);
-    v.z = __fmul_rn(__fmul_rn((float)acc[i][2], s), w4.z);
-    v.w = __fmul_rn(__fmul_rn((float)acc[i][3], s), w4.w);
-    if (bias != nullptr) {
-      v.x = __fadd_rn(v.x, b4.x);
-      v.y = __fadd_rn(v.y, b4.y);
-      v.z = __fadd_rn(v.z, b4.z);
-      v.w = __fadd_rn(v.w, b4.w);
-    }
-    *reinterpret_cast<float4*>(out + (size_t)m * N + n) = v;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// int8_conv
-//
-// Replaces deepfake_vit_tpu/models/scrfd_int8.py::ScrfdInt8Runner._conv_s8
-// with its dequantizing epilogue (an XLA s8 convolution on the TPU; not a
-// Pallas kernel). xq (B, H, W, Cin) s8 NHWC, kq (ksize, ksize, Cin, Cout) s8
-// HWIO, explicit top/left padding (the bottom/right padding follows from
-// Ho, Wo), square stride.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-int8_conv_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ kq,
-                 const float* __restrict__ sx, const float* __restrict__ sw,
-                 const float* __restrict__ bias, float* __restrict__ out, int B,
-                 int H, int W, int Cin, int Cout, int ksize, int stride, int pad_t,
-                 int pad_l, int Ho, int Wo, int rows_per_scale) {
-  const int M = B * Ho * Wo, K = ksize * ksize * Cin;
-  int8_tile_product(ConvA{xq, M, H, W, Cin, ksize, stride, pad_t, pad_l, Ho, Wo, K},
-                    kq, sx, sw, bias, out, M, K, Cout, rows_per_scale);
-}
-
-dim3 tiles(int M, int N) { return dim3((M + BM - 1) / BM, (N + BN - 1) / BN); }
-
-// ---------------------------------------------------------------------------
-// int8_gemm
-//
-// Replaces deepfake_vit_tpu/models/int8_tail.py::_int8_matmul (an XLA
-// dot_general s8 x s8 -> s32 with the dequantizing multiply-add fused by the
-// compiler; not a Pallas kernel on the TPU). xq (M, K) s8 row-major; the
-// weights as wt (N, K) s8, K-major: mma.sync takes B with K contiguous per
-// column, and the tail's weights are static, so the runner keeps this copy
-// once (models/int8_tail.py) instead of transposing in the loader.
+// The tensor-core tile product shared by the GEMM and the convolution.
 // ---------------------------------------------------------------------------
 namespace mma {
 
@@ -247,8 +109,8 @@ __device__ __forceinline__ void mma_s8(int* c, const unsigned* a, const unsigned
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// A configuration of the GEMM kernel: a BM x BN block tile of 64 x 32 warp
-// tiles.
+// A configuration of the tile product: a BM x BN block tile of 64 x 32
+// warp tiles.
 template <int BM_, int BN_>
 struct Config {
   static constexpr int BM = BM_, BN = BN_;
@@ -275,27 +137,30 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const int8_t* __re
   }
 }
 
-// Tiles are numbered column tile fastest, so the blocks in flight together
-// cover whole rows of the output.
-template <class Cfg, int kW>
-__global__ void __launch_bounds__(Cfg::kThreads)
-int8_gemm_mma_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wt,
-                     const float* __restrict__ sx, const float* __restrict__ sw,
-                     const float* __restrict__ bias, float* __restrict__ out, int M, int K,
-                     int N, int rows_per_scale) {
-  constexpr int BM = Cfg::BM, BN = Cfg::BN, A_BYTES = BM * kRowBytes;
+// out[m0.., n0..] = dequant(A[m, :] . wt[n, :]) for one BM x BN tile.
+// load_a(dst, k0) stages the tile's A rows at K step k0 (BM rows of BK
+// bytes, kRowBytes apart) with cp.async copies; the weights wt (N, K) are
+// K-major. Three-stage cp.async ring, fragments through ldmatrix, 4 x 4
+// mma.sync.m16n8k32 s8 products a warp and a k32 step, then the epilogue
+// straight from the fragments.
+template <class Cfg, int kW, class LoadA>
+__device__ __forceinline__ void tile_product(const LoadA& load_a, unsigned char* smem,
+                                             const int8_t* __restrict__ wt,
+                                             const float* __restrict__ sx,
+                                             const float* __restrict__ sw,
+                                             const float* __restrict__ bias,
+                                             float* __restrict__ out, int M, int K, int N,
+                                             int rows_per_scale, int m0, int n0) {
+  constexpr int A_BYTES = Cfg::BM * kRowBytes;
   constexpr int kMT = WM / 16, kNT = WN / 8, kHalves = BK / 32;
-  extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / Cfg::kWarpsN, wn = warp % Cfg::kWarpsN;
-  const int tiles_n = (N + BN - 1) / BN;
-  const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * BN;
   const int KT = (K + BK - 1) / BK;
 
   auto load_stage = [&](int kt) {
     unsigned char* st = smem + (kt % kStages) * Cfg::kStageBytes;
-    load_tile<Cfg, kW, BM>(st, xq, m0, M, K, kt * BK, tid);
-    load_tile<Cfg, kW, BN>(st + A_BYTES, wt, n0, N, K, kt * BK, tid);
+    load_a(st, kt * BK);
+    load_tile<Cfg, kW, Cfg::BN>(st + A_BYTES, wt, n0, N, K, kt * BK, tid);
   };
 
   int acc[kMT][kNT][4] = {};  // [m16 tile][n8 tile][fragment]
@@ -378,45 +243,178 @@ int8_gemm_mma_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ w
     }
 }
 
+// ---------------------------------------------------------------------------
+// int8_gemm
+//
+// Replaces deepfake_vit_tpu/models/int8_tail.py::_int8_matmul (an XLA
+// dot_general s8 x s8 -> s32 with the dequantizing multiply-add fused by the
+// compiler; not a Pallas kernel on the TPU). xq (M, K) s8 row-major; the
+// weights as wt (N, K) s8, K-major: mma.sync takes B with K contiguous per
+// column, and the tail's weights are static, so the runner keeps this copy
+// once (models/int8_tail.py) instead of transposing in the loader.
+// Tiles are numbered column tile fastest, so the blocks in flight together
+// cover whole rows of the output.
+// ---------------------------------------------------------------------------
 template <class Cfg, int kW>
-int launch_gemm(const int8_t* xq, const int8_t* wt, const float* sx, const float* sw,
-                const float* bias, float* out, int M, int K, int N, int rows_per_scale,
-                cudaStream_t stream) {
-  auto kernel = int8_gemm_mma_kernel<Cfg, kW>;
-  if (Cfg::kSmem > 48 * 1024) {
+__global__ void __launch_bounds__(Cfg::kThreads)
+int8_gemm_mma_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wt,
+                     const float* __restrict__ sx, const float* __restrict__ sw,
+                     const float* __restrict__ bias, float* __restrict__ out, int M, int K,
+                     int N, int rows_per_scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x;
+  const int tiles_n = (N + Cfg::BN - 1) / Cfg::BN;
+  const int m0 = (blockIdx.x / tiles_n) * Cfg::BM, n0 = (blockIdx.x % tiles_n) * Cfg::BN;
+  auto load_a = [&](unsigned char* dst, int k0) {
+    load_tile<Cfg, kW, Cfg::BM>(dst, xq, m0, M, K, k0, tid);
+  };
+  tile_product<Cfg, kW>(load_a, smem, wt, sx, sw, bias, out, M, K, N, rows_per_scale, m0, n0);
+}
+
+// ---------------------------------------------------------------------------
+// int8_conv
+//
+// Replaces deepfake_vit_tpu/models/scrfd_int8.py::ScrfdInt8Runner._conv_s8
+// with its dequantizing epilogue (an XLA s8 convolution on the TPU; not a
+// Pallas kernel). xq (B, H, W, Cin) s8 NHWC; the kernel as wt (Cout, k, k,
+// Cin) s8, K-major (the HWIO kernel's K = (tap_row * k + tap_col) * Cin + c
+// contiguous per output channel); explicit top/left padding (the
+// bottom/right padding follows from Ho, Wo), square stride.
+//
+// An implicit GEMM: row m of the tile is output pixel (b, ho, wo), and its
+// K step copies come straight from the image, no im2col tensor. A copy of
+// kW bytes lies inside one tap (Cin % kW == 0); a padding tap, a ragged K
+// end or a row beyond M is a zero-fill copy (src-size 0), so the inner loop
+// has no branch. Each block first writes a table of its rows (image offset
+// of the pixel under tap (0, 0), its top-left input row and column), and
+// each thread keeps one K column of the step (cc) for all its rows: a K step
+// costs a thread one tap decode and, per row, a table read, two bound
+// checks and an address.
+// ---------------------------------------------------------------------------
+template <class Cfg, int kW>
+__global__ void __launch_bounds__(Cfg::kThreads)
+int8_conv_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wt,
+                 const float* __restrict__ sx, const float* __restrict__ sw,
+                 const float* __restrict__ bias, float* __restrict__ out, int B, int H, int W,
+                 int Cin, int Cout, int ksize, int stride, int pad_t, int pad_l, int Ho, int Wo,
+                 int rows_per_scale) {
+  constexpr int BM = Cfg::BM, T = Cfg::kThreads, kPerRow = BK / kW;
+  constexpr int kRowStep = T / kPerRow, kRowsPerThread = BM / kRowStep;
+  static_assert(T % kPerRow == 0 && BM % kRowStep == 0, "whole rows of copies a pass");
+  extern __shared__ __align__(16) unsigned char smem[];
+  int4* rowS = reinterpret_cast<int4*>(smem + kStages * Cfg::kStageBytes);  // [BM]
+  const int tid = threadIdx.x;
+  const int M = B * Ho * Wo, K = ksize * ksize * Cin;
+  const int tiles_n = (Cout + Cfg::BN - 1) / Cfg::BN;
+  const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * Cfg::BN;
+
+  // Row table: (offset of input pixel (hi0, wi0) of image b, hi0, wi0). A row
+  // beyond M gets hi0 far outside the image: every copy of it reads zero.
+  for (int i = tid; i < BM; i += T) {
+    const int m = m0 + i;
+    int4 r = make_int4(0, -(1 << 28), 0, 0);
+    if (m < M) {
+      const int b = m / (Ho * Wo);
+      const int rem = m - b * (Ho * Wo);
+      const int ho = rem / Wo;
+      const int hi0 = ho * stride - pad_t, wi0 = (rem - ho * Wo) * stride - pad_l;
+      r = make_int4(((b * H + hi0) * W + wi0) * Cin, hi0, wi0, 0);
+    }
+    rowS[i] = r;
+  }
+  __syncthreads();
+
+  const int cc = tid % kPerRow, r0 = tid / kPerRow;
+  auto load_a = [&](unsigned char* dst, int k0) {
+    const int k = k0 + cc * kW;
+    const int tap = k / Cin;
+    const int tr = tap / ksize, tc = tap - tr * ksize;
+    const int koff = (tr * W + tc) * Cin + (k - tap * Cin);
+    const bool kin = k < K;
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      const int rr = r0 + i * kRowStep;
+      const int4 row = rowS[rr];
+      const bool ok = kin && (unsigned)(row.y + tr) < (unsigned)H &&
+                      (unsigned)(row.z + tc) < (unsigned)W;
+      cp_async<kW>(dst + rr * kRowBytes + cc * kW, ok ? xq + row.x + koff : xq, ok);
+    }
+  };
+  tile_product<Cfg, kW>(load_a, smem, wt, sx, sw, bias, out, M, K, Cout, rows_per_scale, m0, n0);
+}
+
+// Launch one configuration with the copy width of the plan.
+template <class Cfg, class Kernel, class... Args>
+int launch(Kernel kernel, size_t smem, long long tiles, cudaStream_t stream, Args... args) {
+  if (smem > 48 * 1024) {
     const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmem);
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const long long tiles =
-      (long long)((N + Cfg::BN - 1) / Cfg::BN) * ((M + Cfg::BM - 1) / Cfg::BM);
-  kernel<<<(unsigned)tiles, Cfg::kThreads, Cfg::kSmem, stream>>>(xq, wt, sx, sw, bias, out, M,
-                                                                 K, N, rows_per_scale);
+  kernel<<<(unsigned)tiles, Cfg::kThreads, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
 template <class Cfg>
-int launch_config(int copy_bytes, const int8_t* xq, const int8_t* wt, const float* sx,
-                  const float* sw, const float* bias, float* out, int M, int K, int N,
-                  int rows_per_scale, cudaStream_t stream) {
+long long tile_count(int M, int N) {
+  return (long long)((N + Cfg::BN - 1) / Cfg::BN) * ((M + Cfg::BM - 1) / Cfg::BM);
+}
+
+// f(std::integral_constant<int, copy_bytes>()) for a copy width of 16, 8 or 4.
+template <class F>
+int with_copy_bytes(int copy_bytes, F f) {
   switch (copy_bytes) {
-    case 16: return launch_gemm<Cfg, 16>(xq, wt, sx, sw, bias, out, M, K, N, rows_per_scale, stream);
-    case 8: return launch_gemm<Cfg, 8>(xq, wt, sx, sw, bias, out, M, K, N, rows_per_scale, stream);
-    case 4: return launch_gemm<Cfg, 4>(xq, wt, sx, sw, bias, out, M, K, N, rows_per_scale, stream);
+    case 16: return f(std::integral_constant<int, 16>());
+    case 8: return f(std::integral_constant<int, 8>());
+    case 4: return f(std::integral_constant<int, 4>());
   }
   return (int)cudaErrorInvalidValue;
 }
 
-using Launch = int (*)(int, const int8_t*, const int8_t*, const float*, const float*,
-                       const float*, float*, int, int, int, int, cudaStream_t);
+template <class Cfg>
+int launch_gemm(int copy_bytes, const int8_t* xq, const int8_t* wt, const float* sx,
+                const float* sw, const float* bias, float* out, int M, int K, int N,
+                int rows_per_scale, cudaStream_t stream) {
+  return with_copy_bytes(copy_bytes, [&](auto w) {
+    return launch<Cfg>(int8_gemm_mma_kernel<Cfg, decltype(w)::value>, Cfg::kSmem,
+                       tile_count<Cfg>(M, N), stream, xq, wt, sx, sw, bias, out, M, K, N,
+                       rows_per_scale);
+  });
+}
 
-// The block tiles int8_gemm_plan (ops/int8_kernel.py) chooses from, by
-// index.
-constexpr Launch kConfigs[] = {
-    launch_config<Config<128, 128>>,
-    launch_config<Config<128, 64>>,
+template <class Cfg>
+int launch_conv(int copy_bytes, const int8_t* xq, const int8_t* wt, const float* sx,
+                const float* sw, const float* bias, float* out, int B, int H, int W, int Cin,
+                int Cout, int ksize, int stride, int pad_t, int pad_l, int Ho, int Wo,
+                int rows_per_scale, cudaStream_t stream) {
+  return with_copy_bytes(copy_bytes, [&](auto w) {
+    return launch<Cfg>(int8_conv_kernel<Cfg, decltype(w)::value>,
+                       Cfg::kSmem + Cfg::BM * sizeof(int4), tile_count<Cfg>(B * Ho * Wo, Cout),
+                       stream, xq, wt, sx, sw, bias, out, B, H, W, Cin, Cout, ksize, stride,
+                       pad_t, pad_l, Ho, Wo, rows_per_scale);
+  });
+}
+
+using GemmLaunch = int (*)(int, const int8_t*, const int8_t*, const float*, const float*,
+                           const float*, float*, int, int, int, int, cudaStream_t);
+using ConvLaunch = int (*)(int, const int8_t*, const int8_t*, const float*, const float*,
+                           const float*, float*, int, int, int, int, int, int, int, int, int,
+                           int, int, int, cudaStream_t);
+
+// The block tiles int8_gemm_plan and int8_conv_plan (ops/int8_kernel.py)
+// choose from, by index.
+constexpr GemmLaunch kGemmConfigs[] = {
+    launch_gemm<Config<128, 128>>,
+    launch_gemm<Config<128, 64>>,
 };
-constexpr int kNumConfigs = sizeof(kConfigs) / sizeof(kConfigs[0]);
+constexpr ConvLaunch kConvConfigs[] = {
+    launch_conv<Config<256, 64>>,
+    launch_conv<Config<512, 32>>,
+    launch_conv<Config<128, 64>>,
+    launch_conv<Config<512, 64>>,
+};
+constexpr int kNumGemmConfigs = sizeof(kGemmConfigs) / sizeof(kGemmConfigs[0]);
+constexpr int kNumConvConfigs = sizeof(kConvConfigs) / sizeof(kConvConfigs[0]);
 
 }  // namespace mma
 
@@ -426,33 +424,32 @@ extern "C" {
 
 // Both return cudaGetLastError() after the launch (0 when it was accepted).
 // K and N (Cin and Cout) must be multiples of 4 and every pointer 16-byte
-// aligned; sx holds ceil(M / rows_per_scale) scales; bias may be null. The
-// GEMM takes its weights K-major, wt (N, K); config (an index into
-// mma::kConfigs) and copy_bytes (16, 8 or 4, dividing K) come from
-// int8_gemm_plan.
+// aligned; sx holds ceil(M / rows_per_scale) scales; bias may be null. Both
+// take their weights K-major: the GEMM wt (N, K), the convolution wt (Cout,
+// k, k, Cin). config (an index into mma::kGemmConfigs or kConvConfigs) and
+// copy_bytes (16, 8 or 4, dividing K, and Cin for the convolution) come
+// from int8_gemm_plan and int8_conv_plan.
 
 int dfv_int8_gemm(const void* xq, const void* wt, const void* sx, const void* sw,
                   const void* bias, void* out, int M, int K, int N, int rows_per_scale,
                   int config, int copy_bytes, void* stream) {
-  if (config < 0 || config >= mma::kNumConfigs) return (int)cudaErrorInvalidValue;
+  if (config < 0 || config >= mma::kNumGemmConfigs) return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
-  return mma::kConfigs[config](copy_bytes, (const int8_t*)xq, (const int8_t*)wt,
-                               (const float*)sx, (const float*)sw, (const float*)bias,
-                               (float*)out, M, K, N, rows_per_scale, (cudaStream_t)stream);
+  return mma::kGemmConfigs[config](copy_bytes, (const int8_t*)xq, (const int8_t*)wt,
+                                   (const float*)sx, (const float*)sw, (const float*)bias,
+                                   (float*)out, M, K, N, rows_per_scale, (cudaStream_t)stream);
 }
 
-int dfv_int8_conv(const void* xq, const void* kq, const void* sx, const void* sw,
-                  const void* bias, void* out, int B, int H, int W, int Cin,
-                  int Cout, int ksize, int stride, int pad_t, int pad_l, int Ho,
-                  int Wo, int rows_per_scale, void* stream) {
-  const int M = B * Ho * Wo;
-  if (M > 0 && Cout > 0) {
-    int8_conv_kernel<<<tiles(M, Cout), kThreads, 0, (cudaStream_t)stream>>>(
-        (const int8_t*)xq, (const int8_t*)kq, (const float*)sx, (const float*)sw,
-        (const float*)bias, (float*)out, B, H, W, Cin, Cout, ksize, stride, pad_t,
-        pad_l, Ho, Wo, rows_per_scale);
-  }
-  return (int)cudaGetLastError();
+int dfv_int8_conv(const void* xq, const void* wt, const void* sx, const void* sw,
+                  const void* bias, void* out, int B, int H, int W, int Cin, int Cout,
+                  int ksize, int stride, int pad_t, int pad_l, int Ho, int Wo,
+                  int rows_per_scale, int config, int copy_bytes, void* stream) {
+  if (config < 0 || config >= mma::kNumConvConfigs) return (int)cudaErrorInvalidValue;
+  if (B * Ho * Wo <= 0 || Cout <= 0) return (int)cudaGetLastError();
+  return mma::kConvConfigs[config](copy_bytes, (const int8_t*)xq, (const int8_t*)wt,
+                                   (const float*)sx, (const float*)sw, (const float*)bias,
+                                   (float*)out, B, H, W, Cin, Cout, ksize, stride, pad_t, pad_l,
+                                   Ho, Wo, rows_per_scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -4,7 +4,8 @@ SCRFD spends its operations in 3×3 convolutions spread over the whole net
 (residual stages at C = 64/128/256, FPN smoothing, head towers). This
 module re-emits the detector forward with every wide conv as an s8
 convolution through the hand-written kernel
-(``ops/int8_kernel.py::int8_conv``): per-output-channel symmetric weight
+(``ops/int8_kernel.py::int8_conv``, which reads the quantized kernels
+K-major, as the runner keeps them): per-output-channel symmetric weight
 scales and calibrated static per-tensor activation scales
 (:func:`calibrate_det_act_scales`), or dynamic per-image scales when
 uncalibrated.
@@ -32,6 +33,12 @@ from .quant import (dynamic_scale, fold_bn, folded_hwio, hwio, merge_max, quant_
 from .scrfd import ScrfdDetector, _fold_kernel
 
 QuantConv = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (kq HWIO s8, sw, bias)
+
+
+def _k_major(kq: torch.Tensor) -> torch.Tensor:
+    """The HWIO view of a contiguous (Cout, k, k, Cin) copy of ``kq``: the
+    layout ``int8_conv`` reads without a copy."""
+    return kq.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
 
 
 def _upsample2(x: torch.Tensor) -> torch.Tensor:
@@ -67,7 +74,8 @@ class ScrfdInt8Runner:
 
         def quantized(conv, bn) -> QuantConv:
             k, b = folded_hwio(conv, bn)
-            return (*quant_w(k), b)
+            kq, sw = quant_w(k)
+            return _k_major(kq), sw, b
 
         # Stem conv 1: unquantized, keeps the (possibly pool-folded) ingest exact.
         stem = detector._ConvBN_0

@@ -37,8 +37,7 @@ _SIGNATURES = {
     "dfv_crop_pool_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "dfv_warp_affine": [_P, _P, _P, _P, *[_I] * 10, _P],
     "dfv_int8_gemm": [*[_P] * 6, *[_I] * 6, _P],
-    "dfv_int8_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _I, _P],
+    "dfv_int8_conv": [*[_P] * 6, *[_I] * 14, _P],
     "dfv_fused_stem": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "dfv_fused_block": [*[_P] * 14, *[_I] * 11, _P],
     "dfv_fused_mbconv": [*[_P] * 14, *[_I] * 9, _P],

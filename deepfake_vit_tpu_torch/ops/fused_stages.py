@@ -23,10 +23,11 @@ current stream when the tensors lie on a CUDA device; for CPU tensors it
 runs the plain PyTorch version beside it. ``launches`` counts kernel
 launches and nothing else: one per call of ``run_stem`` (one device launch)
 and one per call of ``run_block`` (a group of ``LAUNCHES_PER_BLOCK`` device
-launches: pass 1, squeeze-excite, pass 2). Kernel and plain version sum the
-1×1 products in different orders, so they agree within two bf16 steps, not
-bit for bit; the depthwise conv and the squeeze-excite of the plain version
-repeat the kernels' order of operations.
+launches: pass 1, squeeze-excite, pass 2). The kernels do the two 1×1
+products on the tensor cores (bf16 ``mma.sync``, f32 accumulators), which
+sum in their own order, so kernel and plain version agree within two bf16
+steps, not bit for bit; the depthwise conv and the squeeze-excite of the
+plain version repeat the kernels' order of operations.
 """
 
 from __future__ import annotations
@@ -213,19 +214,21 @@ def proj_group(cout: int) -> int:
 
 
 def block_smem_bytes(bp: BlockPlan) -> int:
-    """Shared memory of pass 2 for this block (the layout of csrc/fused.cu:
-    input tile with halo, e, the chunk's weights, d, and one projection
-    group's weights and output tile)."""
+    """Shared memory of pass 2 for this block (the layout of csrc/fused.cu):
+    the bf16 input tile with its halo (rows padded to 16, channels to 16 and
+    8 more), f32 e, the chunk's bf16 expand weights and f32 taps, bf16 scaled
+    d, and one projection group's bf16 weights and output tile."""
     def a16(v):
         return (v + 15) & ~15
 
     tin = bp.stride * (_TILE - 1) + bp.kernel
     npin = tin * tin
+    xrow = -(-bp.cin // 16) * 16 + 8
+    row = _CHUNK + 8  # a row of e (f32), of scaled d and of a projection weight (bf16)
     group = proj_group(bp.cout)
-    regions = (npin * (bp.cin + 4) * 4, npin * _CHUNK * 4, bp.cin * _CHUNK * 4,
+    regions = (-(-npin // 16) * 16 * xrow * 2, npin * row * 4, _CHUNK * xrow * 2,
                bp.kernel ** 2 * _CHUNK * 4, 3 * _CHUNK * 4, 8 * _CHUNK * 4, npin,
-               _CHUNK * (_TILE * _TILE + 1) * 4, group * _CHUNK * 4,
-               _TILE * _TILE * (group + 2) * 2)
+               _TILE * _TILE * row * 2, group * row * 2, _TILE * _TILE * (group + 2) * 2)
     return sum(a16(r) for r in regions)
 
 

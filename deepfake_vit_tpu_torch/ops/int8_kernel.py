@@ -10,15 +10,16 @@ are one value for the whole tensor (static, calibrated) or one per image
 kernels; stock PyTorch has no CUDA int8 convolution and ``torch._int_mm`` is
 a library call, so each has a kernel of the port's own.
 
-The GEMM runs on the tensor cores (``mma.sync`` s8 tiles, a tile per
-shape from :func:`int8_gemm_plan`); the convolution on the integer pipes.
-Each wrapper checks its inputs, allocates the output with ``torch.empty``
-and launches its kernel on the current stream for CUDA tensors; for CPU
-tensors it runs the plain PyTorch version beside it. The plain versions sum
-in float64, which is exact here (|acc| ≤ 9·256·127² < 2⁵³; float32 would
-not be: K·127² exceeds 2²⁴ from K = 1041), so kernel and plain version agree
-bit for bit. ``launches`` on each wrapper counts kernel launches and
-nothing else.
+Both run on the tensor cores (``mma.sync`` s8 tiles, a tile per shape from
+:func:`int8_gemm_plan` and :func:`int8_conv_plan`); the convolution is an
+implicit GEMM that reads its K steps straight from the NHWC image. Both read
+their weights K-major. Each wrapper checks its inputs, allocates the output
+with ``torch.empty`` and launches its kernel on the current stream for CUDA
+tensors; for CPU tensors it runs the plain PyTorch version beside it. The
+plain versions sum in float64, which is exact here (|acc| ≤ 9·256·127² <
+2⁵³; float32 would not be: K·127² exceeds 2²⁴ from K = 1041), so kernel and
+plain version agree bit for bit. ``launches`` on each wrapper counts kernel
+launches and nothing else.
 """
 
 from __future__ import annotations
@@ -79,7 +80,7 @@ def int8_gemm_plain(xq: torch.Tensor, wq: torch.Tensor, sx: torch.Tensor, sw: to
 
 
 # The block tiles of the GEMM kernel, (rows, columns), in the order of
-# csrc/int8.cu::kConfigs: 64 × 32 warp tiles, 64-byte K steps in a
+# csrc/int8.cu::kGemmConfigs: 64 × 32 warp tiles, 64-byte K steps in a
 # three-stage pipeline of 80-byte shared-memory rows.
 GEMM_TILES = ((128, 128), (128, 64))
 
@@ -187,6 +188,52 @@ def int8_conv_plain(xq: torch.Tensor, kq: torch.Tensor, sx: torch.Tensor, sw: to
     return _dequant(acc.reshape(sx.numel(), -1, Cout), sx, sw, bias).reshape(B, Ho, Wo, Cout)
 
 
+# The block tiles of the convolution kernel, in the order of
+# csrc/int8.cu::kConvConfigs: the GEMM's 64 × 32 warp tiles, K steps and
+# pipeline, plus a 16-byte row table a tile row.
+CONV_TILES = ((256, 64), (512, 32), (128, 64), (512, 64))
+
+
+class ConvPlan(NamedTuple):
+    """Launch plan of the convolution kernel (``int8_conv_kernel``)."""
+
+    config: int       # index into CONV_TILES
+    tile_m: int
+    tile_n: int
+    copy_bytes: int   # bytes per cp.async copy: 16, 8 or 4, the largest dividing Cin
+    k_padded: int     # K rounded up to the 64-byte K step: the last step reads zeros
+    smem_bytes: int
+    blocks: int
+
+
+def int8_conv_plan(M: int, K: int, N: int, Cin: int) -> ConvPlan:
+    """Block tile of the convolution kernel for one shape (M output pixels,
+    K = k²·Cin, N = Cout), large where the shape fills the card: 512 × 32
+    (8 warps) for Cout ≤ 32, whose columns one warp tile covers; 512 × 64
+    (16 warps) for a single 64-byte K step (the 1×1 convolutions on up to 64
+    channels); 256 × 64 (8 warps) otherwise; and 128 × 64 (4 warps, more
+    blocks) where the larger tiles would leave any of the H100's 132 SMs
+    without a block, as for the detector's 10² 64 → 64 convolutions at
+    B = 128. At each detector shape the chosen tile measured the fastest of
+    these (``tools/mma_variants.py``). A copy stays inside one kernel tap,
+    so its width divides Cin."""
+    def fills(bm: int) -> bool:
+        return -(-M // bm) * -(-N // 64) >= SM_COUNT
+
+    if N <= 32:
+        config = 1
+    elif K <= 64 and fills(512):
+        config = 3
+    else:
+        config = 0 if fills(256) else 2
+    bm, bn = CONV_TILES[config]
+    smem = 3 * (bm + bn) * 80 + 16 * bm
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"int8_conv: a {bm} x {bn} tile needs {smem} bytes of shared memory")
+    copy = next(b for b in (16, 8, 4) if Cin % b == 0)
+    return ConvPlan(config, bm, bn, copy, -(-K // 64) * 64, smem, -(-M // bm) * -(-N // bn))
+
+
 def int8_conv(xq: torch.Tensor, kq: torch.Tensor, sx: torch.Tensor, sw: torch.Tensor,
               bias: Optional[torch.Tensor] = None, stride: int = 1) -> torch.Tensor:
     """s8 convolution with XLA 'SAME' padding, dequantized to f32.
@@ -196,6 +243,11 @@ def int8_conv(xq: torch.Tensor, kq: torch.Tensor, sx: torch.Tensor, sw: torch.Te
     'SAME' padding is asymmetric at stride 2 on even sizes (k3 pads (0, 1),
     k1 nothing). Cin and Cout must be multiples of 4. Returns
     (B, ⌈H/stride⌉, ⌈W/stride⌉, Cout) f32 = ``(f32(acc)·sx)·sw + bias``.
+
+    The kernel reads the weights K-major, as (Cout, k, k, Cin). A ``kq``
+    stored so — the HWIO view of a contiguous (Cout, k, k, Cin) tensor, as
+    ``ScrfdInt8Runner`` keeps its kernels — goes to it as it is; any other
+    ``kq`` is copied K-major first, and that copy is work of the call.
     """
     if xq.dim() != 4 or kq.dim() != 4 or kq.shape[0] != kq.shape[1] or xq.shape[3] != kq.shape[2]:
         raise ValueError(f"int8_conv: image {tuple(xq.shape)} (NHWC) and kernel "
@@ -219,11 +271,15 @@ def int8_conv(xq: torch.Tensor, kq: torch.Tensor, sx: torch.Tensor, sw: torch.Te
         return int8_conv_plain(xq, kq, sx, sw, bias, stride)
     if dev.type != "cuda":
         raise RuntimeError(f"int8_conv has no kernel for device {dev}")
-    xq, kq, sx, sw, bias = (_aligned(t) for t in (xq, kq, sx, sw, bias))
+    if xq.numel() >= 2 ** 31 or B * Ho * Wo * Cout >= 2 ** 31:
+        raise ValueError("int8_conv: the kernel indexes the image and output with 32-bit offsets")
+    plan = int8_conv_plan(B * Ho * Wo, k * k * Cin, Cout, Cin)
+    xq, wt, sx, sw, bias = (_aligned(t) for t in (xq, kq.permute(3, 0, 1, 2), sx, sw, bias))
     out = torch.empty((B, Ho, Wo, Cout), dtype=torch.float32, device=dev)
-    err = library().dfv_int8_conv(xq.data_ptr(), kq.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+    err = library().dfv_int8_conv(xq.data_ptr(), wt.data_ptr(), sx.data_ptr(), sw.data_ptr(),
                                   _ptr(bias), out.data_ptr(), B, H, W, Cin, Cout, k, stride,
-                                  pt, pl, Ho, Wo, rows_per_scale, stream())
+                                  pt, pl, Ho, Wo, rows_per_scale, plan.config, plan.copy_bytes,
+                                  stream())
     check(err, "int8_conv")
     int8_conv.launches += 1
     return out
@@ -232,5 +288,5 @@ def int8_conv(xq: torch.Tensor, kq: torch.Tensor, sx: torch.Tensor, sw: torch.Te
 int8_conv.launches = 0
 
 
-__all__ = ["GEMM_TILES", "GemmPlan", "int8_conv", "int8_conv_plain", "int8_gemm", "int8_gemm_plain",
-           "int8_gemm_plan"]
+__all__ = ["CONV_TILES", "ConvPlan", "GEMM_TILES", "GemmPlan", "int8_conv", "int8_conv_plain",
+           "int8_conv_plan", "int8_gemm", "int8_gemm_plain", "int8_gemm_plan"]

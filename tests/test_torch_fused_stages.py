@@ -393,8 +393,8 @@ def test_fused_wrappers_validate_and_count_only_launches():
                          residual=False)  # any cout: two projection groups of 104 and 96
     assert tfs.run_block(wide, x, w[:8] + [torch.zeros(200, 96, dtype=torch.bfloat16),
                                            torch.zeros(200)]).shape == (1, 8, 8, 200)
-    huge = tfs.BlockPlan(kernel=5, stride=1, cin=400, cexp=2400, cse=100, cout=400,
-                         has_expand=True, residual=True)  # a 12² tile of 400 f32 channels
+    huge = tfs.BlockPlan(kernel=5, stride=1, cin=800, cexp=4800, cse=200, cout=800,
+                         has_expand=True, residual=True)  # a 12² tile of 800 bf16 channels
     with pytest.raises(ValueError, match="shared memory"):
         tfs.check_plan("run_block", huge)
     with pytest.raises(ValueError, match="w_exp"):
@@ -425,14 +425,13 @@ def test_fused_wrappers_validate_and_count_only_launches():
     assert tfs.block_smem_bytes(tfs.block_plan_from_args(_args(5, 1, 160, 160, 6))) < 232448
 
 
-@pytest.mark.parametrize("variant,cout,group,smem", [("b6", 200, 104, 201488),
-                                                     ("b7", 224, 112, 220432)])
+@pytest.mark.parametrize("variant,cout,group,smem", [("b6", 200, 104, 143568),
+                                                     ("b7", 224, 112, 146896)])
 def test_runner_builds_for_wide_variants(variant, cout, group, smem):
     """b6 and b7 at 224² fuse blocks whose cout exceeds one projection
-    group (200 and 224 at 14²); the runner plans and folds them, and their
-    pass 2 fits a block's shared memory only because it stages one group
-    of the projection at a time (b7's widest block would need 249,104 bytes
-    with all of cout)."""
+    group (200 and 224 at 14²); the runner plans and folds them, and pass 2
+    stages one group of the projection at a time in a block's shared memory
+    (the bf16 layout of the tensor-core kernel)."""
     runner = FusedBackboneRunner(EfficientNetBackbone(variant), image_size=224)
     jplans, jtail = j_plan(variant, 224)
     assert runner.tail_start == jtail == (31 if variant == "b6" else 38)

@@ -183,20 +183,38 @@ def test_int8_gemm_kernel_matches_plain(dev, M, K, N, scales, bias, layout):
     assert torch.equal(got, ik.int8_gemm_plain(xq, wq, sx, sw, b))
 
 
-@pytest.mark.parametrize("shape,cout,k,stride,scales", [
-    ((32, 160, 160, 32), 32, 3, 2, 1),    # stem conv 2
-    ((32, 40, 40, 64), 64, 3, 1, 32),     # FPN / tower, per-image scales
-    ((32, 10, 10, 256), 256, 3, 1, 1),    # widest block
-    ((32, 80, 80, 32), 64, 1, 2, 1),      # 1×1 stride-2 shortcut
-    ((3, 21, 13, 32), 36, 3, 2, 3),       # odd sizes, ragged tiles
+# (H, Cin, Cout, k, stride) of the int8 detector's 25 convolutions at the
+# 320² canvas: 12 distinct shapes (tests/test_torch_conv_plan.py records them
+# from the runner).
+_DETECTOR_CONVS = ((160, 32, 32, 3, 2), (80, 32, 64, 3, 2), (80, 32, 64, 1, 2), (40, 64, 64, 3, 1),
+                   (40, 64, 128, 3, 2), (40, 64, 128, 1, 2), (20, 64, 64, 3, 1),
+                   (20, 128, 128, 3, 1), (20, 128, 256, 3, 2), (20, 128, 256, 1, 2),
+                   (10, 64, 64, 3, 1), (10, 256, 256, 3, 1))
+
+
+@pytest.mark.parametrize("shape,cout,k,stride,scales,bias,layout", [
+    *(((32, h, h, cin), cout, k, s, 1, True, "k_major") for h, cin, cout, k, s in _DETECTOR_CONVS),
+    ((32, 40, 40, 64), 64, 3, 1, 32, True, "k_major"),   # per-image scales
+    ((32, 10, 10, 256), 256, 3, 1, 1, False, "k_major"),  # no bias
+    ((32, 80, 80, 32), 64, 1, 2, 1, True, "hwio"),       # a kernel that is not K-major: copied
+    ((3, 21, 13, 32), 36, 3, 2, 3, True, "hwio"),        # odd sizes, ragged tiles
+    ((2, 9, 11, 4), 8, 3, 1, 2, True, "k_major"),        # Cin 4: 4-byte copies, K = 36
+    ((2, 12, 7, 12), 20, 3, 2, 1, False, "hwio"),        # Cin 12: 4-byte copies
+    ((2, 10, 10, 24), 16, 1, 2, 2, True, "k_major"),     # Cin 24: 8-byte copies
 ])
-def test_int8_conv_kernel_matches_plain(dev, shape, cout, k, stride, scales):
+def test_int8_conv_kernel_matches_plain(dev, shape, cout, k, stride, scales, bias, layout):
+    """Bit for bit, on operands spanning [-128, 127] with images and output
+    channels at the extremes; one launch a call."""
     g = torch.Generator(device="cpu").manual_seed(shape[1] + cout)
-    xq = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).to(dev)
-    kq = torch.randint(-127, 128, (k, k, shape[3], cout), generator=g, dtype=torch.int8).to(dev)
+    xq = torch.randint(-128, 128, shape, generator=g, dtype=torch.int8)
+    kq = torch.randint(-128, 128, (k, k, shape[3], cout), generator=g, dtype=torch.int8)
+    xq[0], xq[-1], kq[..., 0], kq[..., -1] = -128, 127, -128, 127
+    xq, kq = xq.to(dev), kq.to(dev)
+    if layout == "k_major":  # as ScrfdInt8Runner keeps its kernels
+        kq = kq.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
     sx = (torch.rand(scales, generator=g) * 0.05 + 0.01).to(dev)
     sw = (torch.rand(cout, generator=g) * 0.01 + 0.001).to(dev)
-    b = torch.randn(cout, generator=g).to(dev)
+    b = torch.randn(cout, generator=g).to(dev) if bias else None
     before = ik.int8_conv.launches
     got = ik.int8_conv(xq, kq, sx, sw, b, stride)
     torch.cuda.synchronize()
@@ -376,9 +394,12 @@ B4 = block_args("b4")
     (B4[10], 28, 4), (B4[16], 14, 4), (B4[17], 14, 4),
     (block_args("b6")[24], 14, 4), (block_args("b7")[29], 14, 4),
     (dict(kernel=3, stride=1, expand_ratio=6, in_filters=16, out_filters=264, se_ratio=0.25), 9, 2),
+    (dict(kernel=3, stride=1, expand_ratio=6, in_filters=24, out_filters=24, se_ratio=0.25), 11, 3),
+    (dict(kernel=5, stride=1, expand_ratio=6, in_filters=56, out_filters=56, se_ratio=0.25), 10, 3),
 ], ids=["k3s1-ragged", "k3s2", "k5s1", "k5s2-ragged", "no-expand-ragged", "b4-1@96", "b4-2@96",
         "b4-3@48", "b4-6@48", "b4-7@24", "b4-10@28", "b4-16@14", "b4-17@14", "b6-24@14-cout200",
-        "b7-29@14-cout224", "cout264-two-sweeps"])
+        "b7-29@14-cout224", "cout264-two-sweeps", "cin24-k-padded-residual",
+        "cin56-k-padded-residual"])
 def test_fused_block_kernel_matches_plain(dev, args, h, B):
     blk = _randomize_bn(init_weights(MBConvBlock(**args), h), h + 1).to(dev).eval()
     bp = fs.block_plan_from_args(args)
@@ -414,13 +435,15 @@ def test_fused_stem_kernel_matches_plain(dev, variant, shape):
     _assert_two_bf16_steps(got, fs.run_stem_plain(x, w))
 
 
-@pytest.mark.parametrize("idx,h,B", [(0, 11, 3), (3, 48, 8), (12, 14, 8)],
-                         ids=["b4-0-no-expand-ragged", "b4-3@48", "b4-12@14"])
-def test_fused_mbconv_kernel_matches_plain(dev, idx, h, B):
-    args = B4[idx]
-    blk = _randomize_bn(init_weights(MBConvBlock(**args), idx), idx + 1).to(dev).eval()
+@pytest.mark.parametrize("args,h,B", [
+    (B4[0], 11, 3), (B4[3], 48, 8), (B4[12], 14, 8),
+    (dict(kernel=3, stride=1, expand_ratio=6, in_filters=24, out_filters=24, se_ratio=0.25), 11, 3),
+    (dict(kernel=3, stride=1, expand_ratio=6, in_filters=56, out_filters=56, se_ratio=0.25), 9, 3),
+], ids=["b4-0-no-expand-ragged", "b4-3@48", "b4-12@14", "cin24-k-padded", "cin56-k-padded"])
+def test_fused_mbconv_kernel_matches_plain(dev, args, h, B):
+    blk = _randomize_bn(init_weights(MBConvBlock(**args), h), h + 1).to(dev).eval()
     folded = fm.fold_mbconv_params(blk, args["expand_ratio"])
-    g = torch.Generator(device="cpu").manual_seed(idx)
+    g = torch.Generator(device="cpu").manual_seed(h)
     x = torch.randn((B, h, h, args["in_filters"]), generator=g).to(dev)
     before = fm.fused_mbconv.launches
     got = fm.fused_mbconv(x, folded, args["expand_ratio"])
