@@ -14,15 +14,17 @@
    Beside them each kernel's and each library call's own device time from
    ``torch.profiler`` over the same launches (``device_ms``,
    ``library_device_ms``): the numbers to compare a kernel with its
-   library call and its bound. The crop, warp and int8 wrappers must
-   launch exactly one device kernel a call. The GEMM gets K-major weights,
+   library call and its bound. The crop, warp, int8 and stem wrappers
+   must launch exactly one device kernel a call. The GEMM gets K-major weights,
    as the int8 tail keeps them; ``torch._int_mm`` is timed on those and on
    row-major weights and the faster stands as the library call; a fill of
    the f32 output is printed as the store floor. The convolution runs at
    every distinct shape that path A's detector launches in one served batch
    (recorded from its runner, 25 launches, 12 shapes), its kernels K-major
    as the runner keeps them, and the per-batch sums of device time and
-   bound are printed. The two int8 kernels and the four warps (legacy,
+   bound are printed. The stem runs at paths C's and D's shapes, beside one
+   cuDNN convolution of the same product as context (no SiLU: not the same
+   function); the pooled crop at paths B's and F's (faces sharing frames). The two int8 kernels and the four warps (legacy,
    "uw", "uw16" and int8 taps) must agree bit for bit, the three crops (the
    fractional crop with legacy and rank-1 "mxu" taps, the pooled crop)
    within one bf16 step (they agree bit for bit), "uw" and "uw16" with each
@@ -143,7 +145,7 @@ KERNEL_CLASSES = (
     ("host <-> device copy", ("memcpy",)),
     ("crop_frac (port kernel)", ("crop_frac_band_kernel<0>",)),
     ("crop_frac_mxu (port kernel)", ("crop_frac_band_kernel<1>",)),
-    ("crop_pool (port kernel)", ("crop_pool_kernel",)),
+    ("crop_pool (port kernel)", ("crop_pool_band_kernel", "crop_pool_kernel")),
     ("warp_affine_legacy (port kernel)", ("warp_tile_kernel<0>",)),
     ("warp_affine_uw / uw16 (port kernel)", ("warp_tile_kernel<1>",)),
     ("warp_affine_int8 (port kernel)", ("warp_tile_kernel<2>",)),
@@ -563,41 +565,60 @@ def check_int8_conv(ik, dev, convs, k_major: bool, batch: int = 128) -> list:
     return rows
 
 
-def check_crop_pool(wk, frames_flat, A_inv, dev) -> dict:
-    """crop_pool vs its plain version: 128 faces, 640² frames, window 160."""
+def check_crop_pool(wk, frames_flat, A_inv, dev) -> list:
+    """crop_pool vs its plain version at path B's shape (128 faces, one
+    frame each, frame_idx None) and path F's (96 face slots sharing 32
+    frames, 3 a frame): 640² frames, window 160. Returns one row a shape."""
     from deepfake_vit_tpu_torch.ops.warp import max_window_levels, window_geometry
 
     N, H, WC = frames_flat.shape
     C, W = 3, WC // 3
     levels = max_window_levels((H, W), POOL_WINDOW)
-    level, y0s, x0s, _ = window_geometry(A_inv, POOL_FACE, (H, W), POOL_WINDOW, levels, y_align=16)
-    idx = torch.arange(N, device=dev)
-    y0_l0 = y0s[level.long(), idx] << level
-    x0 = x0s[level.long(), idx]
-    hist = torch.bincount(level.long(), minlength=levels).tolist()
-    print(f"pooled crop geometry: {N} faces, levels {hist}")
-    if min(hist) == 0:
-        fail("seeded geometry must cover every mip level")
-    args = (frames_flat, y0_l0, x0, level, POOL_WINDOW, C)
-    got = wk.crop_pool(*args)
-    torch.cuda.synchronize()
-    plain_args = (frames_flat, y0_l0.int(), x0.int(), level.int(), POOL_WINDOW, C, idx.int())
-    err = (got.float() - wk.crop_pool_plain(*plain_args).float()).abs().max().item()
-    t = time_ms(lambda: wk.crop_pool(*args))
-    d = device_ms(lambda: wk.crop_pool(*args), "crop_pool")
-    plain = time_ms(lambda: wk.crop_pool_plain(*plain_args), iters=3, repeats=3)
-    side = torch.full_like(level.long(), POOL_WINDOW) << level.long()
-    nbytes = int((side * side).sum().item()) * C * 2 + N * POOL_WINDOW ** 2 * C * 2 + N * 16
-    b_ms, by = bound(nbytes)
-    print(f"crop_pool: max_abs {err} (tol {POOL_TOL}) kernel_ms {fmt(t)} device_ms {fmt_dev(d)} "
-          f"plain_ms {fmt(plain)} bound_us {b_ms * 1e3:.2f} ({nbytes} bytes); no single PyTorch "
-          f"call computes it")
-    if not err <= POOL_TOL:
-        fail(f"crop_pool disagrees with its plain version: {err}")
-    return {"shape": f"{N} faces, {H}² frames, window {POOL_WINDOW}, levels {hist}",
-            "max_abs_err": err, "ms": t["median"], "ms_range": [t["min"], t["max"]],
-            "device_ms": d["ms"], "device_kernels": d["kernels"],
-            "plain_ms": plain["median"], "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    shapes = (("B", A_inv, None), ("F", seeded_geometry(BATCH * MULTI_K, 7, dev),
+                                   torch.arange(BATCH * MULTI_K, device=dev).int() // MULTI_K))
+    rows = []
+    for path, A, fidx in shapes:
+        n = A.shape[0]
+        level, y0s, x0s, _ = window_geometry(A, POOL_FACE, (H, W), POOL_WINDOW, levels, y_align=16)
+        idx = torch.arange(n, device=dev)
+        y0_l0 = y0s[level.long(), idx] << level
+        x0 = x0s[level.long(), idx]
+        hist = torch.bincount(level.long(), minlength=levels).tolist()
+        if min(hist) == 0:
+            fail("seeded geometry must cover every mip level")
+        frames = frames_flat if fidx is None else frames_flat[:BATCH]
+        args = (frames, y0_l0, x0, level, POOL_WINDOW, C)
+        kw = {} if fidx is None else {"frame_idx": fidx}
+        plain_idx = idx.int() if fidx is None else fidx
+        got = wk.crop_pool(*args, **kw)
+        torch.cuda.synchronize()
+        plain_args = (frames, y0_l0.int(), x0.int(), level.int(), POOL_WINDOW, C, plain_idx)
+        err = (got.float() - wk.crop_pool_plain(*plain_args).float()).abs().max().item()
+        t = time_ms(lambda: wk.crop_pool(*args, **kw))
+        d = device_ms(lambda: wk.crop_pool(*args, **kw), "crop_pool")
+        if hasattr(wk, "crop_pool_plan"):  # an earlier checkout may launch more
+            one_launch("crop_pool", d, "crop_pool_band_kernel")
+        plain = time_ms(lambda: wk.crop_pool_plain(*plain_args), iters=3, repeats=3)
+        # The source pixels on the frame that the face's 4^l blocks cover,
+        # read once; the output written once; 16 bytes of scalars a face.
+        side = (1 << level.long())
+        span = lambda lo, size: (torch.clamp((lo + POOL_WINDOW) * side, max=size)
+                                 - torch.clamp(lo * side, min=0)).clamp_min(0)
+        on_frame = span(y0_l0.long() // side, H) * span(x0.long(), W)
+        nbytes = int(on_frame.sum().item()) * C * 2 + n * POOL_WINDOW ** 2 * C * 2 + n * 16
+        b_ms, by = bound(nbytes)
+        shape = (f"{n} faces{'' if fidx is None else f' sharing {BATCH} frames'}, {H}² frames, "
+                 f"window {POOL_WINDOW}, levels {hist}")
+        print(f"crop_pool, path {path} shape, {shape}: max_abs {err} (tol {POOL_TOL}) kernel_ms "
+              f"{fmt(t)} device_ms {fmt_dev(d)} plain_ms {fmt(plain)} bound_us {b_ms * 1e3:.2f} "
+              f"({nbytes} bytes), {d['ms'] / b_ms:.2f}x; no single PyTorch call computes it")
+        if not err <= POOL_TOL:
+            fail(f"crop_pool disagrees with its plain version at path {path}'s shape: {err}")
+        rows.append({"shape": shape, "max_abs_err": err, "ms": t["median"],
+                     "ms_range": [t["min"], t["max"]], "device_ms": d["ms"],
+                     "device_kernels": d["kernels"], "plain_ms": plain["median"],
+                     "bound_ms": b_ms, "bound_by": by, "library_ms": None})
+    return rows
 
 
 def fused_agreement(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -668,38 +689,16 @@ def block_inputs(fs, bb, variant: str, idx: int, h: int, B: int, g, dev):
 
 def check_fused(fs, fm, dev):
     """run_stem, run_block and fused_mbconv against their plain versions at
-    B4's shapes, on seeded weights and inputs. Returns (stem row, block
+    B4's shapes, on seeded weights and inputs. Returns (stem rows, block
     rows, prototype rows)."""
-    import torch.nn.functional as F
-
     from deepfake_vit_tpu_torch.models.efficientnet import EfficientNetBackbone
     from deepfake_vit_tpu_torch.models.layers import init_weights
-    from deepfake_vit_tpu_torch.ops.image import normalize_imagenet
 
     bb = init_weights(EfficientNetBackbone("b4", dtype=torch.bfloat16), 1).to(dev).eval()
+    stem_rows = check_stem(fs, bb, dev)
+    # The blocks' inputs follow the first stem input in one seeded stream.
     g = torch.Generator(device="cpu").manual_seed(3)
-
-    B = 128
-    faces = torch.randint(0, 256, (B, *FACE, 3), generator=g, dtype=torch.uint8).to(dev)
-    x = normalize_imagenet(faces.float() / 255.0).to(torch.bfloat16)
-    sw = fs.fold_stem_weights(bb)
-    got = fs.run_stem(x, sw)
-    torch.cuda.synchronize()
-    agree = fused_agreement("run_stem", got, fs.run_stem_plain(x, sw))
-    t = time_ms(lambda: fs.run_stem(x, sw))
-    d = device_ms(lambda: fs.run_stem(x, sw), "fused_stem")
-    plain = time_ms(lambda: fs.run_stem_plain(x, sw), iters=3, repeats=3)
-    x_nchw = x.permute(0, 3, 1, 2)
-    with torch.inference_mode():
-        eager = time_ms(lambda: F.silu(bb.stem_bn(bb.stem_conv(x_nchw))), iters=5, repeats=3)
-    ho = FACE[0] // 2
-    taps = valid_taps(FACE[0], ho, 3, 2, 0)
-    c0 = sw[0].shape[0]
-    b_ms, by = bound(x.numel() * 2 + B * ho * ho * c0 * 2 + sw[0].numel() * 2 + c0 * 4,
-                     2.0 * B * taps * taps * 3 * c0, BF16_OPS_PER_S)
-    stem_row = fused_row("run_stem", f"({B}, {FACE[0]}, {FACE[1]}, 3) -> {c0} channels", agree, t,
-                         d, plain, b_ms, by, eager)
-    del x, x_nchw, faces, got
+    torch.randint(0, 256, (STEM_SHAPES[0][0], *STEM_SHAPES[0][1], 3), generator=g)
 
     def block_case(label, variant, idx, h, B):
         blk, args, bp, weights, x = block_inputs(fs, bb, variant, idx, h, B, g, dev)
@@ -727,7 +726,58 @@ def check_fused(fs, fm, dev):
 
     block_rows = [block_case("run_block", *case) for case in FUSED_BLOCKS]
     proto_rows = [block_case("fused_mbconv", "b4", *case) for case in PROTO_BLOCKS]
-    return stem_row, block_rows, proto_rows
+    return stem_rows, block_rows, proto_rows
+
+
+# The stem at path C's faces (B = 128, 192²) and path D's (B = 32, 224²).
+STEM_SHAPES = ((128, FACE), (BATCH, POOL_FACE))
+
+
+def check_stem(fs, bb, dev) -> list:
+    """run_stem vs its plain version at STEM_SHAPES on B4's seeded stem and
+    seeded faces; one device launch a call. Context, not the same function
+    (no SiLU): one cuDNN convolution in bf16, channels-last, with the folded
+    weights and bias, on the input padded beforehand (the port never calls
+    it)."""
+    import torch.nn.functional as F
+
+    from deepfake_vit_tpu_torch.ops.image import normalize_imagenet
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    sw = fs.fold_stem_weights(bb)
+    c0 = sw[0].shape[0]
+    w4 = sw[0].float().reshape(c0, 3, 3, 3).permute(0, 3, 1, 2).to(torch.bfloat16)
+    w4 = w4.contiguous(memory_format=torch.channels_last)
+    rows = []
+    for B, face in STEM_SHAPES:
+        faces = torch.randint(0, 256, (B, *face, 3), generator=g, dtype=torch.uint8).to(dev)
+        x = normalize_imagenet(faces.float() / 255.0).to(torch.bfloat16)
+        got = fs.run_stem(x, sw)
+        torch.cuda.synchronize()
+        agree = fused_agreement("run_stem", got, fs.run_stem_plain(x, sw))
+        t = time_ms(lambda: fs.run_stem(x, sw))
+        d = device_ms(lambda: fs.run_stem(x, sw), "fused_stem")
+        if hasattr(fs, "stem_plan"):  # an earlier checkout may launch more
+            one_launch("run_stem", d, "fused_stem_kernel")
+        plain = time_ms(lambda: fs.run_stem_plain(x, sw), iters=3, repeats=3)
+        x_nchw = x.permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            eager = time_ms(lambda: F.silu(bb.stem_bn(bb.stem_conv(x_nchw))), iters=5, repeats=3)
+        x_pad = F.pad(x_nchw, (0, 1, 0, 1)).contiguous(memory_format=torch.channels_last)
+        cudnn = device_ms(lambda: F.conv2d(x_pad, w4, sw[1].to(torch.bfloat16), stride=2))
+        ho = face[0] // 2
+        taps = valid_taps(face[0], ho, 3, 2, 0)
+        b_ms, by = bound(x.numel() * 2 + B * ho * ho * c0 * 2 + sw[0].numel() * 2 + c0 * 4,
+                         2.0 * B * taps * taps * 3 * c0, BF16_OPS_PER_S)
+        row = fused_row("run_stem", f"({B}, {face[0]}, {face[1]}, 3) -> {c0} channels", agree, t,
+                        d, plain, b_ms, by, eager)
+        print(f"run_stem ({B}, {face[0]}², 3): {d['ms'] / b_ms:.2f}x the bound; context, not the "
+              f"same function (no SiLU): one bf16 cuDNN conv2d, channels-last, folded weights "
+              f"and bias, device_ms {fmt_dev(cudnn)}")
+        row["context_cudnn_conv_device_ms"] = cudnn["call_ms"]
+        rows.append(row)
+        del x, x_nchw, x_pad, faces, got
+    return rows
 
 
 def warp_grid(coeffs: torch.Tensor, out_size, src: int) -> torch.Tensor:
@@ -1123,7 +1173,7 @@ def main() -> None:
     del mxu_k, crop_k
     rank1_rows = check_rank1_warps(wk, frames_flat, dev)
     geometry_rows = check_warp_geometry(wk, dev)
-    pool_row = check_crop_pool(wk, frames_flat, A_inv, dev)
+    pool_rows = check_crop_pool(wk, frames_flat, A_inv, dev)
     del frames, frames_flat
     gemm_rows = check_int8_gemm(ik, dev)
     # The detector's convolutions as path A launches them in one served batch.
@@ -1132,7 +1182,7 @@ def main() -> None:
     if len(convs) != EXPECTED["A int8 headline"]["int8_conv"] or not k_major:
         fail(f"path A launched {len(convs)} detector convolutions, K-major kernels {k_major}")
     conv_rows = check_int8_conv(ik, dev, convs, k_major)
-    stem_row, block_rows, proto_rows = check_fused(fs, fm, dev)
+    stem_rows, block_rows, proto_rows = check_fused(fs, fm, dev)
     torch.cuda.empty_cache()
 
     # 4. Each pipeline on the card vs on the CPU (plain kernel versions),
@@ -1273,13 +1323,13 @@ def main() -> None:
         row("warp_affine_int8", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:101",
             e_launches["warp_affine_int8"], int8_row, construction="int8"),
         row("crop_pool", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:356",
-            b_launches["crop_pool"], pool_row),
+            b_launches["crop_pool"], pool_rows[0], pool_rows),
         row("int8_gemm", "int8.cu", "deepfake_vit_tpu/models/int8_tail.py:42",
             a_launches["int8_gemm"], gemm_rows[0], gemm_rows),
         row("int8_conv", "int8.cu", "deepfake_vit_tpu/models/scrfd_int8.py:160",
             a_launches["int8_conv"], conv_rows[0], conv_rows),
         row("run_stem", "fused.cu", "deepfake_vit_tpu/ops/pallas/fused_stages.py:372",
-            c_launches["run_stem"], stem_row, [stem_row]),
+            c_launches["run_stem"], stem_rows[0], stem_rows),
         row("run_block", "fused.cu", "deepfake_vit_tpu/ops/pallas/fused_stages.py:216",
             c_launches["run_block"], block_rows[0], block_rows),
         row("fused_mbconv", "fused.cu", "deepfake_vit_tpu/ops/pallas/fused_mbconv.py:60",
@@ -1295,7 +1345,7 @@ def main() -> None:
                            **rank1_rows},
              "bound_bytes": {"crop_frac": crop_bytes},
              "warp_geometry": geometry_rows,
-             "crop_pool": pool_row, "card_vs_cpu": card_vs_cpu_err, "paths": paths,
+             "crop_pool": pool_rows, "card_vs_cpu": card_vs_cpu_err, "paths": paths,
              "device_launches_per_fused_block": fs.LAUNCHES_PER_BLOCK,
              "torch": torch.__version__, "cuda": torch.version.cuda}
     out_dir = ROOT / "chiprun_out"

@@ -73,10 +73,23 @@
 // recomputed expand, staging and the second pass. A faster SiLU, larger
 // tiles, wgmma/TMA staging and a cluster sharing d through distributed
 // shared memory (one pass) are later work.
+//
+// The stem (fused_stem_kernel, below) is bound by bytes on paper: 0.042 ms
+// for 128 images at 192x192 (its 113 MB bf16 output is most of it). Its
+// 27-term product runs on the tensor cores, so what bounds it is the precise
+// SiLU of each output value on the CUDA cores: measured by
+// tools/kernel_times.py on an NVIDIA
+// H100 80GB HBM3 at 700 W, 0.102 ms at (128, 192, 192) and 0.042 ms at
+// (32, 224, 224), 2.4x and 2.9x the bound, against 0.162 and 0.059 ms for
+// the first version (one thread a pixel, 1,296 FMAs on the CUDA cores).
+// tools/stem_pool_variants.py puts 0.045 ms of the 0.102 in the SiLU
+// (0.057 ms with the SiLU taken away, 0.073 with __expf and __fdividef).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -123,63 +136,250 @@ __device__ __forceinline__ void mma_bf16(float* c, const unsigned* a, unsigned b
 }
 
 // ---------------------------------------------------------------------------
-// Stem: 3x3 stride-2 convolution on the NHWC image, TF "SAME" on even sizes
-// (pad 0 before, 1 after: tap dy reads input row 2y + dy), + bias, SiLU.
-// One thread per output pixel; the 27-value patch sits in registers and the
-// weights in shared memory (every lane reads the same word: a broadcast).
+// Stem: bf16(silu(W . patch + b)), a 3x3 stride-2 convolution on the NHWC
+// image, TF "SAME" on even sizes (pad 0 before, 1 after: tap dy reads input
+// row 2y + dy), with BatchNorm folded into w (cstem, 27) bf16, column
+// (dy*3 + dx)*3 + ci, and b (cstem) f32.
+//
+// A work item is `rows` output rows by `seg` output columns of one image
+// (the whole row up to 128 columns; stem_plan in ops/fused_stages.py sizes
+// it). Persistent blocks, as many as the SMs hold, walk the items; a block
+// loads its B fragments once and stages item i + 1 while it computes item i.
+//   1. It stages the 2*rows + 1 input rows the band reads, each over the
+//      segment's input columns and two more, with cp.async: 16-byte copies
+//      when an image row is a multiple of 16 bytes (W % 8 == 0), else
+//      4-byte copies. What lies past the bottom or the right edge of the
+//      image is zero-filled by the copy itself (src-size), so the product
+//      has no branch.
+//   2. The 27-term product runs on the tensor cores, bf16 mma.sync.m16n8k16
+//      with f32 accumulators: M = the block's pixels in row tiles of 16,
+//      K = 32, N = the stem channels in n8 tiles (64 at a time). K column
+//      c holds tap dy = c / 10, element off = c % 10 of the 9 contiguous
+//      values (dx, ci) that row 2*yo + dy holds from element 6*xo on, off 9
+//      and c >= 30 zero in both operands: every A register is one aligned
+//      32-bit load of the staged row (at off 8 its upper half is masked
+//      off). B, the folded weights in that order, stays in registers for
+//      the whole block. bf16 x bf16 products are exact in f32, so only the
+//      order of the 27-term sum differs from run_stem_plain.
+//   3. + bias in f32, the precise SiLU (expf and an IEEE division, as
+//      F.silu in f32 and jax.nn.silu), rounded to bf16 into a shared-memory
+//      copy of the item's output; then 16-byte stores, each output row of
+//      the item one contiguous span of NHWC.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
+constexpr int STEM_THREADS = 128;
+constexpr int STEM_WARPS = STEM_THREADS / 32;
+constexpr int STEM_NT = 8;  // n8 tiles of one channel group: 64 channels
+
+// floor(v / d) for v * d < 2^32: v times the reciprocal ceil(2^32 / d).
+__device__ __forceinline__ unsigned recip32(unsigned d) { return 0xffffffffu / d + 1u; }
+__device__ __forceinline__ unsigned div_by(unsigned v, unsigned d, unsigned rcp) {
+  return d == 1u ? v : __umulhi(v, rcp);
+}
+
+// kCopy-byte asynchronous copy whose first src_bytes come from gmem_src and
+// the rest are zeros.
+template <int kCopy>
+__device__ __forceinline__ void cp_async_zfill(void* smem_dst, const void* gmem_src,
+                                               int src_bytes) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
+  if (kCopy == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
+                 "r"(src_bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem_src),
+                 "r"(src_bytes));
+}
+
+// Dynamic shared memory: two buffers of staged input rows ([2*rows + 1][rs]
+// bf16 each), then the block's output ([rows*seg][cstem + 8] bf16: the
+// 8-element pad puts the eight pixels of a fragment store in distinct banks).
+// A block is persistent: it walks the work items (image, band, segment)
+// blockIdx.x, + gridDim.x, ..., staging item i + 1 while it computes item i.
+// kNT: cstem / 8 when one channel group of at most STEM_NT n8 tiles holds
+// every channel (its loops then have constant bounds and its fragments take
+// only the registers they need), 0 for any cstem (groups of STEM_NT tiles).
+// At most 96 registers a thread, so that five blocks share an SM: the
+// precise SiLU is a chain of dependent instructions, and more warps hide it
+// (tools/stem_pool_variants.py: 3, 4 or 6 blocks an SM, or no bound, are
+// slower). The general instantiation (kNT = 0) spills a little at this
+// bound; it serves no path.
+template <int kCopy, int kNT>
+__global__ void __launch_bounds__(STEM_THREADS, 5)
 fused_stem_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                  const float* __restrict__ b, bf16* __restrict__ out,
-                  int B, int H, int W, int cstem) {
+                  const float* __restrict__ b, bf16* __restrict__ out, int H, int W, int cstem,
+                  int rows, int seg, int rs, int segs, int bands, int items) {
+  constexpr int NT = kNT ? kNT : STEM_NT;  // n8 tiles of a channel group
   extern __shared__ __align__(16) unsigned char stem_smem[];
-  float* wS = reinterpret_cast<float*>(stem_smem);  // (cstem, 27)
-  float* bS = wS + cstem * 27;
-  for (int i = threadIdx.x; i < cstem * 27; i += THREADS) wS[i] = __bfloat162float(w[i]);
-  for (int i = threadIdx.x; i < cstem; i += THREADS) bS[i] = b[i];
-  __syncthreads();
+  const int in_elems = (2 * rows + 1) * rs;
+  bf16* inS[2] = {reinterpret_cast<bf16*>(stem_smem),
+                  reinterpret_cast<bf16*>(stem_smem) + in_elems};
+  bf16* outS = inS[1] + in_elems;
+  const int orow = cstem + 8;
 
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
   const int Ho = H / 2, Wo = W / 2;
-  const long long total = (long long)B * Ho * Wo;
-  const long long p = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (p >= total) return;
-  const int xo = (int)(p % Wo);
-  const int yo = (int)((p / Wo) % Ho);
-  const int bi = (int)(p / ((long long)Wo * Ho));
+  const int rowb = W * 6;
+  const int cpr = rs * 2 / kCopy;  // copies a staged row
+  const unsigned rcp_cpr = recip32(cpr);
 
-  float patch[27];
+  // Item i: segment i % segs of band (i / segs) % bands of image i / (segs * bands).
+  struct Item {
+    int bi, y0, x0, wc, nrows;
+  };
+  auto item_of = [&](int i) {
+    Item t;
+    const int sg = i % segs, rest = i / segs;
+    t.bi = rest / bands;
+    t.y0 = (rest - t.bi * bands) * rows;
+    t.x0 = sg * seg;
+    t.wc = min(seg, Wo - t.x0);
+    t.nrows = min(rows, Ho - t.y0);
+    return t;
+  };
+  // 1. Stage input rows 2*y0 + r, r <= 2*rows, from pixel column 2*x0 on.
+  auto stage = [&](const Item& t, bf16* dst) {
+    const int col0b = t.x0 * 12;
+    const int valid_b = min(rs * 2, rowb - col0b);  // bytes of a staged row on the image
+    const unsigned char* xb = reinterpret_cast<const unsigned char*>(x);
+    for (int idx = tid; idx < (2 * rows + 1) * cpr; idx += STEM_THREADS) {
+      const int r = (int)div_by((unsigned)idx, (unsigned)cpr, rcp_cpr);
+      const int off = (idx - r * cpr) * kCopy;
+      const int iy = 2 * t.y0 + r;
+      const int nb = iy < H ? min(kCopy, max(0, valid_b - off)) : 0;
+      const unsigned char* src =
+          nb > 0 ? xb + ((size_t)t.bi * H + iy) * rowb + col0b + off : xb;
+      cp_async_zfill<kCopy>(reinterpret_cast<unsigned char*>(dst) + (size_t)r * rs * 2 + off,
+                            src, nb);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  // This thread's K columns: pair h of k step s is c = 16s + 8h + 2*t4, at
+  // element dy*rs + off of the pixel's staged patch; mask keeps what is on
+  // the patch (0 from c >= 30, the low half at off 8).
+  int roff[2][2];
+  unsigned mask[2][2];
 #pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
+  for (int s = 0; s < 2; ++s) {
 #pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      const int iy = 2 * yo + dy, ix = 2 * xo + dx;
-      const bool ok = iy < H && ix < W;
-      const bf16* px = x + (((size_t)bi * H + (ok ? iy : 0)) * W + (ok ? ix : 0)) * 3;
-#pragma unroll
-      for (int ci = 0; ci < 3; ++ci)
-        patch[(dy * 3 + dx) * 3 + ci] = ok ? __bfloat162float(px[ci]) : 0.0f;
+    for (int h = 0; h < 2; ++h) {
+      const int c = 16 * s + 8 * h + 2 * t4, dy = c / 10, off = c % 10;
+      roff[s][h] = dy < 3 ? dy * rs + off : 0;
+      mask[s][h] = dy >= 3 ? 0u : off == 8 ? 0xffffu : 0xffffffffu;
     }
   }
-
-  bf16* o = out + (size_t)p * cstem;
-  for (int co0 = 0; co0 < cstem; co0 += 8) {
-    float acc[8];
+  // B fragments of channel group cg: channel cg + 8j + g, K pair c, c + 1
+  // of step s, half h; and the biases of this thread's output channels
+  // cg + 8j + 2*t4 (+1). Loaded once when one group holds every channel.
+  unsigned bfr[NT][2][2];
+  float bias[NT][2];
+  auto load_group = [&](int cg, int nt) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
+    for (int j = 0; j < NT; ++j) {
+      if (j >= nt) continue;
+      const bf16* wr = w + (size_t)(cg + 8 * j + g) * 27;
 #pragma unroll
-    for (int t = 0; t < 27; ++t) {
+      for (int s = 0; s < 2; ++s) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] = fmaf(wS[(co0 + j) * 27 + t], patch[t], acc[j]);
+        for (int h = 0; h < 2; ++h) {
+          const int c = 16 * s + 8 * h + 2 * t4, dy = c / 10, off = c % 10;
+          unsigned lo = 0u, hi = 0u;
+          if (dy < 3) {
+            lo = __bfloat16_as_ushort(wr[dy * 9 + off]);
+            if (off < 8) hi = __bfloat16_as_ushort(wr[dy * 9 + off + 1]);
+          }
+          bfr[j][s][h] = lo | (hi << 16);
+        }
+      }
+      bias[j][0] = b[cg + 8 * j + 2 * t4];
+      bias[j][1] = b[cg + 8 * j + 2 * t4 + 1];
     }
+  };
+  const bool one_group = kNT != 0 || cstem <= 8 * STEM_NT;
+  if (one_group) load_group(0, kNT ? kNT : cstem / 8);
+
+  int i = blockIdx.x;
+  if (i < items) stage(item_of(i), inS[0]);
+  for (int it = 0; i < items; ++it, i += gridDim.x) {
+    const Item t = item_of(i);
+    const bf16* in = inS[it & 1];
+    if (i + (int)gridDim.x < items) {  // the next item's rows fly while this one computes
+      stage(item_of(i + gridDim.x), inS[(it + 1) & 1]);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    // 2. The product, channel group by channel group, into outS.
+    const int npix = t.nrows * t.wc, ntile = (npix + 15) / 16;
+    const unsigned rcp_wc = recip32(t.wc);
+    for (int cg = 0; cg < cstem; cg += 8 * NT) {
+      const int nt = kNT ? kNT : min(STEM_NT, (cstem - cg) / 8);
+      if (!one_group) load_group(cg, nt);
+      for (int mt = warp; mt < ntile; mt += STEM_WARPS) {
+        // Rows g and g + 8 of the tile; a pixel past the item reads pixel 0.
+        int base[2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = silu_f(acc[j] + bS[co0 + j]);
-    uint4 v;
-    v.x = pack2(acc[0], acc[1]);
-    v.y = pack2(acc[2], acc[3]);
-    v.z = pack2(acc[4], acc[5]);
-    v.w = pack2(acc[6], acc[7]);
-    *reinterpret_cast<uint4*>(o + co0) = v;
+        for (int m = 0; m < 2; ++m) {
+          const int p = mt * 16 + 8 * m + g;
+          const int pp = p < npix ? p : 0;
+          const int yl = (int)div_by((unsigned)pp, (unsigned)t.wc, rcp_wc), xo = pp - yl * t.wc;
+          base[m] = 2 * yl * rs + 6 * xo;
+        }
+        unsigned a[2][4];
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+#pragma unroll
+            for (int m = 0; m < 2; ++m)  // a0/a2: row g, a1/a3: row g + 8
+              a[s][2 * h + m] =
+                  *reinterpret_cast<const uint32_t*>(in + base[m] + roff[s][h]) & mask[s][h];
+          }
+        }
+        float acc[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+          if (j < nt) {
+            mma_bf16(acc[j], a[0], bfr[j][0][0], bfr[j][0][1]);
+            mma_bf16(acc[j], a[1], bfr[j][1][0], bfr[j][1][1]);
+          }
+        }
+        // Fragment acc[j][2m + i]: pixel mt*16 + 8m + g, channel cg + 8j + 2*t4 + i.
+        // + bias and the SiLU, then the fragment's two bf16 pairs.
+        const int p0 = mt * 16 + g;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          if (j >= nt) continue;
+          float q[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) q[e] = silu_f(acc[j][e] + bias[j][e & 1]);
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            if (p0 + 8 * m < npix)
+              *reinterpret_cast<uint32_t*>(outS + (size_t)(p0 + 8 * m) * orow + cg + 8 * j +
+                                           2 * t4) = pack2(q[2 * m], q[2 * m + 1]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // 3. The item's output rows, 16-byte stores: pixel p = yl*wc + xo goes
+    //    to (y0 + yl, x0 + xo) of image bi. The next item's product rewrites
+    //    outS only after its first barrier.
+    const int cpp = cstem / 8;
+    const unsigned rcp_cpp = recip32(cpp);
+    for (int idx = tid; idx < npix * cpp; idx += STEM_THREADS) {
+      const int p = (int)div_by((unsigned)idx, (unsigned)cpp, rcp_cpp), q = idx - p * cpp;
+      const int yl = (int)div_by((unsigned)p, (unsigned)t.wc, rcp_wc), xo = p - yl * t.wc;
+      *reinterpret_cast<uint4*>(out + (((size_t)t.bi * Ho + t.y0 + yl) * Wo + t.x0 + xo) * cstem +
+                                8 * q) = *reinterpret_cast<const uint4*>(outS + (size_t)p * orow + 8 * q);
+    }
   }
 }
 
@@ -632,14 +832,47 @@ BlockArgs block_args(const void* x, const void* w_exp, const void* b_exp, const 
 }  // namespace
 
 // x (B, H, W, 3) bf16, w (cstem, 27) bf16, b (cstem) f32 -> out (B, H/2, W/2, cstem) bf16.
+// rows, seg, row_stride (rs), copy_bytes and smem_bytes come from stem_plan in
+// ops/fused_stages.py; x must be 16-byte aligned.
 extern "C" int dfv_fused_stem(const void* x, const void* w, const void* b, void* out, int B,
-                              int H, int W, int cstem, void* stream) {
-  if (H % 2 || W % 2 || cstem % 8 || cstem < 8 || B < 1) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)B * (H / 2) * (W / 2);
-  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-  fused_stem_kernel<<<blocks, THREADS, (size_t)cstem * 28 * 4, static_cast<cudaStream_t>(stream)>>>(
+                              int H, int W, int cstem, int rows, int seg, int row_stride,
+                              int copy_bytes, int smem_bytes, void* stream) {
+  if (H % 2 || W % 2 || cstem % 8 || cstem < 8 || B < 1 || rows < 1 || seg < 1 ||
+      row_stride % 8 || row_stride < 6 * seg + 6 || (copy_bytes != 16 && copy_bytes != 4) ||
+      (copy_bytes == 16 && W % 8))
+    return (int)cudaErrorInvalidValue;
+  const int segs = (W / 2 + seg - 1) / seg, bands = (H / 2 + rows - 1) / rows;
+  const long long items = (long long)B * segs * bands;
+  if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // B4's and every EfficientNet stem width (32-64 channels) have their own
+  // instantiation at 16-byte copies; the rest share the general one.
+  auto kernel = fused_stem_kernel<4, 0>;
+  if (copy_bytes == 16) {
+    switch (cstem) {
+      case 32: kernel = fused_stem_kernel<16, 4>; break;
+      case 40: kernel = fused_stem_kernel<16, 5>; break;
+      case 48: kernel = fused_stem_kernel<16, 6>; break;
+      case 56: kernel = fused_stem_kernel<16, 7>; break;
+      case 64: kernel = fused_stem_kernel<16, 8>; break;
+      default: kernel = fused_stem_kernel<16, 0>;
+    }
+  }
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // Persistent blocks: as many as the SMs hold at once, at most one an item.
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, STEM_THREADS, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (int)std::min<long long>(items, (long long)std::max(1, sms * per_sm));
+  kernel<<<blocks, STEM_THREADS, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const float*>(b),
-      static_cast<bf16*>(out), B, H, W, cstem);
+      static_cast<bf16*>(out), H, W, cstem, rows, seg, row_stride, segs, bands, (int)items);
   return (int)cudaGetLastError();
 }
 

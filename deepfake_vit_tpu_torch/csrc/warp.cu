@@ -23,8 +23,9 @@
 // needs in shared memory with 16-byte cp.async copies and resamples from
 // there (see crop_frac_band_kernel); the warps stage the source box of a 2-D
 // tile of output pixels the same way and write the tile with 16-byte stores
-// (see warp_tile_kernel); the pooled crop gathers straight from device
-// memory in one pass and keeps every intermediate in registers.
+// (see warp_tile_kernel); the pooled crop stages a band's consecutive frame
+// rows in double-buffered stages of 16-byte cp.async copies, sums them down
+// in place and pools the result across (see crop_pool_band_kernel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -312,57 +313,250 @@ crop_frac_band_kernel(const __nv_bfloat16* __restrict__ frames,
 // Replaces deepfake_vit_tpu/ops/pallas/warp_kernel.py::_crop_pool_kernel
 // (launcher crop_window_pool_pallas, constructions "legacy" and "mxu": both
 // compute this function). The TPU kernel DMAs a strip of window*2^l rows and
-// pools and crops it with two selection matmuls Vp @ strip @ Hp; here one
-// thread computes one output element (n, o, j, c) from its own 2^l x 2^l
-// block of level-0 pixels:
-//   t1[s]  = bf16(sum_{r < 2^l} 2^-l * frame[y0_l0 + (o << l) + r, s, c])
-//   out    = bf16(sum_{s < 2^l} 2^-l * t1[((x0 + j) << l) + s])
-// with f32 sums and the TPU kernel's one intermediate rounding to bf16.
-// Blocks of different outputs are disjoint, so every source pixel is read
-// exactly once and nothing is staged.
+// pools and crops it with two selection matmuls Vp @ strip @ Hp. Per face n
+// and output (o, j, c), with f32 sums and the TPU kernel's one intermediate
+// rounding to bf16:
+//   t1[s] = bf16(sum_{r < 2^l} 2^-l * frame[y0_l0 + (o << l) + r, s, c])
+//   out   = bf16(sum_{s < 2^l} 2^-l * t1[((x0 + j) << l) + s])
+// Pixels outside the frame read as 0. A power-of-two factor commutes with
+// rounding, so 2^-l * (sum of the terms in order) is bit for bit the sum of
+// the scaled terms in order: the kernel scales once after each sum.
 //
-// Bound: bytes. Per face (window * 2^l)^2 * C bf16 source values read and
-// window^2 * C written, plus 16 bytes of scalars; at the H100's 3.35 TB/s
-// that is the floor chip_smoke.py reports as bound_ms.
+// Bound: bytes. Per face its (window * 2^l)^2 * C source values inside the
+// frame are read once and window^2 * C values written, plus 16 bytes of
+// scalars; at the H100's 3.35 TB/s that is the floor chip_smoke.py reports
+// as bound_ms.
+//
+// Design: one block per (face, band of output rows), from a 2-D grid (face,
+// band): no division finds them. The band's source rows are consecutive
+// frame rows, y0_l0 + (o0 << l) + k for k < band * 2^l, and go through shared
+// memory in stages of a power-of-two number of rows (crop_pool_plan in
+// ops/warp_kernel.py sizes them):
+//   1. each row's columns that the face reads, (x0 << l) .. ((x0 + window)
+//      << l), clipped to the frame, are copied with 16-byte cp.async as their
+//      16-byte-aligned superset (the values sit ph elements into their slot);
+//      the copies of stage s + 1 are in flight while stage s is reduced;
+//   2. the vertical pass adds each element's 2^l rows in r order (a row
+//      outside the frame adds nothing), 8 elements a thread with 16-byte
+//      loads when every row shares its phase (W * C a multiple of 8), one
+//      element a thread otherwise, and writes t1 as bf16 over the output
+//      row's first slot; when an output row's rows outnumber a stage, the
+//      f32 sums carry to the next stage in shared memory;
+//   3. the horizontal pass computes the output rows a stage completes, one
+//      output a thread, neighbouring threads on neighbouring outputs (their
+//      t1 reads are nearly consecutive: at most two-way bank conflicts), taps only
+//      on the frame's columns, into a shared-memory copy of the rows;
+//   4. the rows go out with 16-byte stores (an output row is window * C
+//      bf16, a multiple of 8).
+// Indices come from the block's coordinates, the thread's index and
+// multiplications by 32-bit reciprocals: no 64-bit division runs.
+// Measured by tools/kernel_times.py on an NVIDIA H100 80GB HBM3 at 700 W
+// (640^2 frames, window 160, levels 0-2): 0.098 ms of device time for 128
+// faces, 1.7x the bound, and 0.076 ms for 96 faces sharing 32 frames,
+// against 0.175 and 0.13 ms for the one-thread-per-output gather it
+// replaces; other bands and stage sizes are no faster
+// (tools/stem_pool_variants.py).
 // ---------------------------------------------------------------------------
-__global__ void crop_pool_kernel(const __nv_bfloat16* __restrict__ frames,
-                                 __nv_bfloat16* __restrict__ out,
-                                 const int* __restrict__ y0_l0,
-                                 const int* __restrict__ x0,
-                                 const int* __restrict__ level,
-                                 const int* __restrict__ frame_idx,
-                                 int n_faces, int H, int W, int C, int window) {
-  const long long total = (long long)n_faces * window * window * C;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int c = (int)(idx % C);
-  long long rest = idx / C;
-  const int j = (int)(rest % window);
-  rest /= window;
-  const int o = (int)(rest % window);
-  const int n = (int)(rest / window);
+constexpr int kPoolThreads = 256;
+constexpr int kPoolWarps = kPoolThreads / 32;
 
-  const int l = level[n];
-  const int side = 1 << l;
-  const float inv = 1.0f / (float)side;  // a power of two: products are exact
-  const int row0 = y0_l0[n] + (o << l);
-  const int col0 = (x0[n] + j) << l;
-  const __nv_bfloat16* frame = frames + (long long)frame_idx[n] * H * W * C;
+__device__ __forceinline__ void cp_async16_zfill(void* smem_dst, const void* gmem_src,
+                                                 int src_bytes) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
+               "r"(src_bytes));
+}
 
-  float acc = 0.0f;
-  for (int s = 0; s < side; ++s) {
-    const int col = col0 + s;
-    if (col < 0 || col >= W) continue;
-    float t1 = 0.0f;
-    for (int r = 0; r < side; ++r) {
-      const int row = row0 + r;
-      if (row < 0 || row >= H) continue;
-      const float px = __bfloat162float(frame[((long long)row * W + col) * C + c]);
-      t1 = __fadd_rn(t1, __fmul_rn(inv, px));
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// floor(v / d) for v * d < 2^32: v times the reciprocal ceil(2^32 / d).
+__device__ __forceinline__ unsigned recip32(unsigned d) { return 0xffffffffu / d + 1u; }
+__device__ __forceinline__ unsigned div_by(unsigned v, unsigned d, unsigned rcp) {
+  return d == 1u ? v : __umulhi(v, rcp);
+}
+
+// Dynamic shared memory: two stage buffers of stage_bytes, f32 carries of
+// one slot's elements (2 * slot_cap bytes), the stage's output rows
+// (out_rows * window * C bf16). slot_cap is the plan's slot: the 16-byte
+// superset of a whole frame row plus one chunk.
+template <bool kVec>
+__global__ void __launch_bounds__(kPoolThreads)
+crop_pool_band_kernel(const __nv_bfloat16* __restrict__ frames, __nv_bfloat16* __restrict__ out,
+                      const int* __restrict__ y0_l0, const int* __restrict__ x0_in,
+                      const int* __restrict__ level, const int* __restrict__ frame_idx,
+                      int n_frames, int H, int W, int C, int window, int band, int stage_bytes,
+                      int slot_cap, int out_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* carry = reinterpret_cast<float*>(smem + 2 * stage_bytes);
+  __nv_bfloat16* outS =
+      reinterpret_cast<__nv_bfloat16*>(smem + 2 * stage_bytes + 2 * slot_cap);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = blockIdx.x;
+  const int o0 = blockIdx.y * band;
+  const int nrows = min(band, window - o0);
+  const int l = level[n], side = 1 << l;
+  const float inv = __int_as_float((127 - l) << 23);  // 2^-l
+  const int fi = frame_idx != nullptr ? frame_idx[n] : n;
+  const int x0 = x0_in[n];
+  const int rowlen = W * C;
+  const __nv_bfloat16* frame = frames + (size_t)fi * H * rowlen;
+  const unsigned char* frames_end =
+      reinterpret_cast<const unsigned char*>(frames + (size_t)n_frames * H * rowlen);
+  const int ybase = y0_l0[n] + (o0 << l);  // frame row of the band's source row k: ybase + k
+  const int total = nrows * side;          // the band's source rows
+
+  // The face's columns on the frame, [cv_lo, cv_hi): the same for every row.
+  const int cv_lo = max(x0 * side, 0), cv_hi = min((x0 + window) * side, W);
+  const int span = cv_hi > cv_lo ? (cv_hi - cv_lo) * C : 0;  // elements a row stages
+  const int nch = span > 0 ? (span * 2 + 15) / 16 + 1 : 0;   // 16-byte chunks of a slot
+  const int slot = 16 * max(nch, 1);
+  // Rows a stage: a power of two, whole output rows where they fit, at most
+  // out_rows output rows (their copy in outS) and never past the band.
+  int rs = 1;
+  while (2 * rs * slot <= stage_bytes && 2 * rs <= side * out_rows && 2 * rs <= total) rs *= 2;
+  const int rows_per_out = min(rs, side);     // of each, rows in the stage
+  const int n_stages = (total + rs - 1) / rs;
+  const int oelems = window * C;  // elements of an output row
+  // Element phase of row y's first value in its slot: frames is 16-byte
+  // aligned, so only the element offset mod 8 counts (32-bit wrap keeps it).
+  auto phase = [&](int y) {
+    return (int)(((unsigned)(fi * H + y) * (unsigned)rowlen + (unsigned)(cv_lo * C)) & 7u);
+  };
+  const unsigned rcp_nch = recip32(max(nch, 1)), rcp_span = recip32(max(span, 1));
+  const unsigned rcp_oel = recip32(oelems), rcp_c = recip32(C), rcp_och = recip32(oelems / 8);
+
+  auto copy_stage = [&](int s) {
+    unsigned char* buf = smem + (s & 1) * stage_bytes;
+    for (int i = warp; i < rs && s * rs + i < total; i += kPoolWarps) {
+      const int y = ybase + s * rs + i;
+      if (y < 0 || y >= H) continue;  // outside the frame: the row adds nothing
+      const unsigned char* begin =
+          reinterpret_cast<const unsigned char*>(frame + (size_t)y * rowlen + cv_lo * C);
+      const unsigned char* a =
+          reinterpret_cast<const unsigned char*>((uintptr_t)begin & ~(uintptr_t)15);
+      for (int q = lane; q < nch; q += 32) {
+        const unsigned char* src = a + 16 * q;
+        if (src < begin + 2 * span)
+          cp_async16_zfill(buf + i * slot + 16 * q, src,
+                           (int)min(16LL, (long long)(frames_end - src)));
+      }
     }
-    acc = __fadd_rn(acc, __fmul_rn(inv, round_bf16(t1)));
+    cp_async_commit();
+  };
+
+  if (nch > 0) copy_stage(0);
+  for (int s = 0; s < n_stages; ++s) {
+    unsigned char* buf = smem + (s & 1) * stage_bytes;
+    const int k0 = s * rs, k1 = min(k0 + rs, total);
+    const int n_out = max(1, (k1 - k0) >> l);               // output rows in this stage
+    const bool first = (k0 & (side - 1)) == 0, last = (k1 & (side - 1)) == 0;
+    if (nch > 0) {
+      if (s + 1 < n_stages) {
+        copy_stage(s + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    }
+    __syncthreads();
+
+    // 2. Vertical pass: output row oi of the stage reads slots
+    //    oi * rows_per_out + r; its t1 goes over slot oi * rows_per_out.
+    if (kVec) {
+      // Every row shares one phase: slot chunk u holds the same elements in
+      // every slot.
+      for (int t = tid; t < n_out * nch; t += kPoolThreads) {
+        const int oi = (int)div_by((unsigned)t, (unsigned)nch, rcp_nch), u = t - oi * nch;
+        const int i0 = oi * rows_per_out, yf = ybase + k0 + i0;
+        float v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = first ? 0.0f : carry[8 * u + e];
+        for (int r = 0; r < rows_per_out; ++r) {
+          const int y = yf + r;
+          if (y < 0 || y >= H) continue;
+          const uint4 w = *reinterpret_cast<const uint4*>(buf + (i0 + r) * slot + 16 * u);
+          const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            v[2 * e] = __fadd_rn(v[2 * e], __uint_as_float(ws[e] << 16));
+            v[2 * e + 1] = __fadd_rn(v[2 * e + 1], __uint_as_float(ws[e] & 0xffff0000u));
+          }
+        }
+        if (last) {
+          uint32_t packed[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const __nv_bfloat162 h =
+                __floats2bfloat162_rn(__fmul_rn(v[2 * e], inv), __fmul_rn(v[2 * e + 1], inv));
+            packed[e] = *reinterpret_cast<const uint32_t*>(&h);
+          }
+          *reinterpret_cast<uint4*>(buf + i0 * slot + 16 * u) =
+              make_uint4(packed[0], packed[1], packed[2], packed[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) carry[8 * u + e] = v[e];
+        }
+      }
+    } else {
+      // Rows may differ in phase: one element a thread, each row read at its
+      // own phase, t1 written at the first slot's.
+      for (int t = tid; t < n_out * span; t += kPoolThreads) {
+        const int oi = (int)div_by((unsigned)t, (unsigned)span, rcp_span), e = t - oi * span;
+        const int i0 = oi * rows_per_out, yf = ybase + k0 + i0;
+        float v = first ? 0.0f : carry[e];
+        for (int r = 0; r < rows_per_out; ++r) {
+          const int y = yf + r;
+          if (y < 0 || y >= H) continue;
+          const __nv_bfloat16* row = reinterpret_cast<const __nv_bfloat16*>(buf + (i0 + r) * slot);
+          v = __fadd_rn(v, __bfloat162float(row[phase(y) + e]));
+        }
+        if (last) {
+          reinterpret_cast<__nv_bfloat16*>(buf + i0 * slot)[phase(yf) + e] =
+              __float2bfloat16_rn(__fmul_rn(v, inv));
+        } else {
+          carry[e] = v;
+        }
+      }
+    }
+    if (!last) {  // the output row continues in the next stage
+      __syncthreads();
+      continue;
+    }
+    __syncthreads();
+
+    // 3. Horizontal pass: output (j, c) of row oi sums t1 over the frame
+    //    columns among ((x0 + j) << l) + s, s < 2^l, in s order.
+    for (int t = tid; t < n_out * oelems; t += kPoolThreads) {
+      const int oi = (int)div_by((unsigned)t, (unsigned)oelems, rcp_oel), e = t - oi * oelems;
+      const int j = (int)div_by((unsigned)e, (unsigned)C, rcp_c), c = e - j * C;
+      const int i0 = oi * rows_per_out, yf = ybase + k0 + i0;
+      const __nv_bfloat16* t1 =
+          reinterpret_cast<const __nv_bfloat16*>(buf + i0 * slot) + phase(yf) + c;
+      const int col0 = (x0 + j) * side;
+      const int s_lo = max(0, cv_lo - col0), s_hi = min(side, cv_hi - col0);
+      float acc = 0.0f;
+      for (int sc = s_lo; sc < s_hi; ++sc)
+        acc = __fadd_rn(acc, __bfloat162float(t1[(col0 + sc - cv_lo) * C]));
+      outS[oi * oelems + e] = __float2bfloat16_rn(__fmul_rn(acc, inv));
+    }
+    __syncthreads();
+
+    // 4. The stage's output rows, 16-byte stores.
+    const int o_first = o0 + (k0 >> l), ochunks = oelems / 8;
+    for (int t = tid; t < n_out * ochunks; t += kPoolThreads) {
+      const int oi = (int)div_by((unsigned)t, (unsigned)ochunks, rcp_och), q = t - oi * ochunks;
+      *reinterpret_cast<uint4*>(out + ((size_t)n * window + o_first + oi) * oelems + 8 * q) =
+          *reinterpret_cast<const uint4*>(outS + oi * oelems + 8 * q);
+    }
+    // No barrier here: the next stage's copies go to the other buffer, and
+    // its passes rewrite outS and this buffer only after its first barrier.
   }
-  out[idx] = __float2bfloat16_rn(acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -717,12 +911,6 @@ warp_tile_kernel(const __nv_bfloat16* __restrict__ img, const float* __restrict_
   }
 }
 
-constexpr int kThreads = 256;
-
-unsigned int blocks_for(long long total) {
-  return (unsigned int)((total + kThreads - 1) / kThreads);
-}
-
 }  // namespace
 
 extern "C" {
@@ -753,16 +941,26 @@ int dfv_crop_frac_bf16(const void* frames, void* out, const void* strip0,
   return (int)cudaGetLastError();
 }
 
-int dfv_crop_pool_bf16(const void* frames, void* out, const void* y0_l0,
-                       const void* x0, const void* level, const void* frame_idx,
-                       int n_faces, int H, int W, int C, int window,
-                       void* stream) {
-  const long long total = (long long)n_faces * window * window * C;
-  if (total > 0) {
-    crop_pool_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)frames, (__nv_bfloat16*)out, (const int*)y0_l0,
-        (const int*)x0, (const int*)level, (const int*)frame_idx, n_faces, H, W,
-        C, window);
+// frame_idx may be null (the identity); frames must be 16-byte aligned and
+// window * C a multiple of 8; vec: W * C is a multiple of 8 (every row shares
+// its phase). band, stage_bytes, slot_bytes, out_rows and smem_bytes come
+// from crop_pool_plan in ops/warp_kernel.py.
+int dfv_crop_pool_bf16(const void* frames, void* out, const void* y0_l0, const void* x0,
+                       const void* level, const void* frame_idx, int n_faces, int n_frames,
+                       int H, int W, int C, int window, int vec, int band, int stage_bytes,
+                       int slot_bytes, int out_rows, int smem_bytes, void* stream) {
+  if (n_faces > 0) {
+    auto kernel = vec ? crop_pool_band_kernel<true> : crop_pool_band_kernel<false>;
+    if (smem_bytes > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const dim3 grid(n_faces, (window + band - 1) / band);
+    kernel<<<grid, kPoolThreads, smem_bytes, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)frames, (__nv_bfloat16*)out, (const int*)y0_l0, (const int*)x0,
+        (const int*)level, (const int*)frame_idx, n_frames, H, W, C, window, band, stage_bytes,
+        slot_bytes, out_rows);
   }
   return (int)cudaGetLastError();
 }

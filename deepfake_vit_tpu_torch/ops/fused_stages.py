@@ -23,17 +23,18 @@ current stream when the tensors lie on a CUDA device; for CPU tensors it
 runs the plain PyTorch version beside it. ``launches`` counts kernel
 launches and nothing else: one per call of ``run_stem`` (one device launch)
 and one per call of ``run_block`` (a group of ``LAUNCHES_PER_BLOCK`` device
-launches: pass 1, squeeze-excite, pass 2). The kernels do the two 1×1
-products on the tensor cores (bf16 ``mma.sync``, f32 accumulators), which
-sum in their own order, so kernel and plain version agree within two bf16
-steps, not bit for bit; the depthwise conv and the squeeze-excite of the
-plain version repeat the kernels' order of operations.
+launches: pass 1, squeeze-excite, pass 2). The kernels do the stem's
+27-term product and the block's two 1×1 products on the tensor cores (bf16
+``mma.sync``, f32 accumulators), which sum in their own order, so kernel and
+plain version agree within two bf16 steps, not bit for bit; the depthwise
+conv and the squeeze-excite of the plain version repeat the kernels' order
+of operations.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -241,6 +242,47 @@ def _tiles(h: int, w: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+class StemPlan(NamedTuple):
+    """Launch plan of the stem kernel (``fused_stem_kernel``)."""
+
+    rows: int          # output rows of a work item
+    seg: int           # output columns of a work item: the whole row up to 128
+    row_stride: int    # bf16 elements of a staged input row: 6·seg + 6, rounded up to 8
+    copy_bytes: int    # 16-byte cp.async when an image row is a multiple of 16 bytes, else 4
+    items: int         # work items (band, segment) per image
+    smem_bytes: int    # two buffers of staged input rows and the item's output
+
+
+_STEM_SEG = 128     # output columns of a work item at most (a multiple of 4: 16-byte aligned starts)
+_STEM_PIXELS = 256  # output pixels a work item aims at
+
+
+def stem_plan(h: int, w: int, c_stem: int) -> StemPlan:
+    """Work item and shared memory of the stem kernel for (B, h, w, 3) images.
+
+    A work item is ``rows`` output rows by ``seg`` output columns of one
+    image; a persistent block walks the items, staging the 2·rows + 1 input
+    rows of the next item (each over the segment's 2·seg + 2 input pixels,
+    the last two zeros past the image: 6·seg + 6 bf16) while it computes
+    the current one, whose output is staged as rows·seg pixels of
+    c_stem + 8 bf16 (the pad spreads a fragment's stores over the banks)."""
+    ho, wo = h // 2, w // 2
+    seg = min(wo, _STEM_SEG)
+    rows = max(1, min(ho, _STEM_PIXELS // seg))
+    row_stride = -(-(6 * seg + 6) // 8) * 8
+
+    def smem(r):
+        return 2 * (2 * r + 1) * row_stride * 2 + r * seg * (c_stem + 8) * 2
+
+    while rows > 1 and smem(rows) > SMEM_PER_BLOCK:
+        rows -= 1
+    if smem(rows) > SMEM_PER_BLOCK:
+        raise ValueError(f"run_stem: {c_stem} channels over {seg} columns need {smem(rows)} "
+                         f"bytes of shared memory a block, more than {SMEM_PER_BLOCK}")
+    items = -(-ho // rows) * -(-wo // seg)
+    return StemPlan(rows, seg, row_stride, 16 if w % 8 == 0 else 4, items, smem(rows))
+
+
 def run_stem_plain(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
     """Plain PyTorch version of the stem kernel:
     ``bf16(silu(W(bf16) · patch(bf16) + b))`` with an f32 sum over the 27
@@ -275,10 +317,14 @@ def run_stem(x: torch.Tensor, weights: Sequence[torch.Tensor]) -> torch.Tensor:
         return run_stem_plain(x, weights)
     if x.device.type != "cuda":
         raise RuntimeError(f"run_stem has no kernel for device {x.device}")
+    plan = stem_plan(H, W, c_stem)
+    if B * plan.items >= 2 ** 31:
+        raise ValueError(f"run_stem: {B} images of {plan.items} work items are too many")
     x, w, b = (_aligned(t) for t in (x, *weights))
     out = torch.empty((B, H // 2, W // 2, c_stem), dtype=torch.bfloat16, device=x.device)
     err = library().dfv_fused_stem(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                   B, H, W, c_stem, stream())
+                                   B, H, W, c_stem, plan.rows, plan.seg, plan.row_stride,
+                                   plan.copy_bytes, plan.smem_bytes, stream())
     check(err, "run_stem")
     run_stem.launches += 1
     return out
@@ -440,7 +486,8 @@ def run_stage(plan: StagePlan, x: torch.Tensor, weights: Sequence[torch.Tensor])
     return x
 
 
-__all__ = ["BlockPlan", "StagePlan", "LAUNCHES_PER_BLOCK", "block_plan_from_args",
+__all__ = ["BlockPlan", "StagePlan", "StemPlan", "LAUNCHES_PER_BLOCK", "block_plan_from_args",
            "block_smem_bytes", "check_block", "check_plan", "proj_group", "fold_stem_weights", "fold_block_weights", "run_stem",
-           "run_stem_plain", "run_block", "run_block_plain", "run_stage", "mbconv_plain",
+           "run_stem_plain", "stem_plan", "run_block", "run_block_plain", "run_stage",
+           "mbconv_plain",
            "depthwise_plain", "tile_mean_plain", "squeeze_excite_plain", "launch_block"]

@@ -18,6 +18,10 @@ The rank-1 taps are those of the TPU kernels' matmul construction:
 ``bf16(max(0, 1 − |U − 1|))`` with ``U = s + (1 − t)`` rounded once, where
 the legacy taps take ``bf16(max(0, 1 − |s − t|))``.
 
+The pooled crop stages a band's consecutive frame rows in shared memory,
+sums each output row's 2ˡ rows there and pools the result across
+(``crop_pool_plan``).
+
 The affine warps run as one kernel over the four constructions, tiled in
 2-D: each block stages the source box of its 32 × ``tile_h`` output tile in
 shared memory as f32 pixels (``warp_plan``, ``warp_tile_box``) or, where the
@@ -36,10 +40,10 @@ from .cuda_build import (BUILD_DIR, NVCC_FLAGS, SMEM_PER_BLOCK, build_library, c
                          stream)
 from .umeyama import invert_affine
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "WARP_KERNELS", "CropFracPlan", "WarpPlan", "WarpTileBox",
-           "build_library", "crop_frac", "crop_frac_mxu", "crop_frac_plain", "crop_frac_plan",
-           "crop_pool", "crop_pool_plain", "warp_affine_int8", "warp_affine_int8_plain",
-           "warp_affine_legacy", "warp_affine_legacy_plain", "warp_affine_uw",
+__all__ = ["BUILD_DIR", "NVCC_FLAGS", "WARP_KERNELS", "CropFracPlan", "CropPoolPlan", "WarpPlan",
+           "WarpTileBox", "build_library", "crop_frac", "crop_frac_mxu", "crop_frac_plain",
+           "crop_frac_plan", "crop_pool", "crop_pool_plain", "crop_pool_plan", "warp_affine_int8",
+           "warp_affine_int8_plain", "warp_affine_legacy", "warp_affine_legacy_plain", "warp_affine_uw",
            "warp_affine_uw16", "warp_affine_uw_plain", "warp_plan", "warp_tile_box",
            "warp_tile_branches"]
 
@@ -267,6 +271,41 @@ def crop_pool_plain(frames_flat, y0_l0, x0, level, window: int, channels: int,
     return out.reshape(-1, window, window * C)
 
 
+class CropPoolPlan(NamedTuple):
+    """Launch plan of the pooled crop kernel (``crop_pool_band_kernel``)."""
+
+    band: int          # output rows per block
+    slot_bytes: int    # one staged source row at most: the 16-byte superset of a frame row
+    stage_bytes: int   # one of the two stage buffers (a stage: a power of two of rows)
+    out_rows: int      # output rows a stage completes at most, staged for 16-byte stores
+    smem_bytes: int    # stage buffers, f32 carries of one slot, the stage's output rows
+
+
+_POOL_BAND = 8
+_POOL_STAGE = 16 * 1024
+_POOL_OUT_ROWS = 4
+
+
+def crop_pool_plan(window: int, channels: int, width: int) -> CropPoolPlan:
+    """Band and shared memory of the pooled crop kernel for one launch.
+
+    A block takes ``band`` output rows of one face; their source rows are
+    consecutive frame rows and pass through shared memory in stages. A
+    staged row holds the face's columns clipped to the frame, so at most the
+    16-byte superset of a whole frame row (``slot_bytes``); a stage buffer
+    holds at least one. A stage is a power of two of rows: whole output rows
+    (at most ``out_rows`` of them) where they fit, else part of one, whose
+    f32 sums then carry to the next stage (``carry``: 2 · slot_bytes)."""
+    band = min(_POOL_BAND, window)
+    slot_bytes = -(-width * channels * 2 // 16) * 16 + 16
+    stage_bytes = max(_POOL_STAGE, slot_bytes)
+    smem = 2 * stage_bytes + 2 * slot_bytes + _POOL_OUT_ROWS * window * channels * 2
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"crop_pool: frames {width} wide with {channels} channels need "
+                         f"{smem} bytes of shared memory a block, more than {SMEM_PER_BLOCK}")
+    return CropPoolPlan(band, slot_bytes, stage_bytes, _POOL_OUT_ROWS, smem)
+
+
 def crop_pool(frames_flat: torch.Tensor, y0_l0: torch.Tensor, x0: torch.Tensor,
               level: torch.Tensor, window: int, channels: int,
               frame_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -279,6 +318,11 @@ def crop_pool(frames_flat: torch.Tensor, y0_l0: torch.Tensor, x0: torch.Tensor,
     window of the frame average-pooled ``level`` times by 2 — exact
     4ˡ-block averaging in f32, rows first, rounded to bf16 once in between
     and once at the end. Pixels outside the frame read as 0.
+
+    On a CUDA device the call launches the kernel and nothing else when the
+    scalars come as int32 (as ``window_geometry`` makes them) and
+    ``frame_idx`` is None or int32; scalars of other types are converted
+    first. The kernel needs ``window·C`` a multiple of 8.
     """
     if frames_flat.dim() != 3 or frames_flat.shape[2] % channels:
         raise ValueError(f"frames_flat must be (B, H, W*{channels}), got {tuple(frames_flat.shape)}")
@@ -287,22 +331,32 @@ def crop_pool(frames_flat: torch.Tensor, y0_l0: torch.Tensor, x0: torch.Tensor,
     if window <= 0:
         raise ValueError("window must be positive")
     N, H = y0_l0.shape[0], frames_flat.shape[1]
+    W = frames_flat.shape[2] // channels
     dev = frames_flat.device
-    if frame_idx is None:
-        frame_idx = torch.arange(N, device=dev)
-    scalars = [t.to(torch.int32).contiguous() for t in (y0_l0, x0, level, frame_idx)]
+    scalars = (y0_l0, x0, level) + (() if frame_idx is None else (frame_idx,))
     if any(s.device != dev or s.shape != (N,) for s in scalars):
         raise ValueError("per-face scalars must be (N,) tensors on the frames' device")
     if dev.type == "cpu":
-        return crop_pool_plain(frames_flat, *scalars[:3], window=window, channels=channels,
-                               frame_idx=scalars[3])
+        fidx = torch.arange(N) if frame_idx is None else frame_idx
+        return crop_pool_plain(frames_flat, *(t.to(torch.int32) for t in (y0_l0, x0, level)),
+                               window=window, channels=channels, frame_idx=fidx.to(torch.int32))
     if dev.type != "cuda":
         raise RuntimeError(f"crop_pool has no kernel for device {dev}")
+    if (window * channels) % 8 or window > 65535 * _POOL_BAND:
+        raise ValueError(f"crop_pool: the kernel takes window * channels a multiple of 8 and "
+                         f"at most {65535 * _POOL_BAND} rows, got {window} * {channels}")
+    plan = crop_pool_plan(window, channels, W)
+    ints = [t.to(torch.int32).contiguous() for t in (y0_l0, x0, level)]
+    fidx = None if frame_idx is None else frame_idx.to(torch.int32).contiguous()
     frames_flat = frames_flat.contiguous()
+    if frames_flat.data_ptr() % 16:  # the kernel copies 16-byte-aligned chunks
+        frames_flat = frames_flat.clone()
     out = torch.empty((N, window, window * channels), dtype=torch.bfloat16, device=dev)
     err = library().dfv_crop_pool_bf16(
-        frames_flat.data_ptr(), out.data_ptr(), *(s.data_ptr() for s in scalars),
-        N, H, frames_flat.shape[2] // channels, channels, window, stream(),
+        frames_flat.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in ints),
+        None if fidx is None else fidx.data_ptr(), N, frames_flat.shape[0], H, W, channels,
+        window, int((W * channels) % 8 == 0), plan.band, plan.stage_bytes, plan.slot_bytes,
+        plan.out_rows, plan.smem_bytes, stream(),
     )
     check(err, "crop_pool")
     crop_pool.launches += 1

@@ -55,22 +55,24 @@ VARIANTS = {
 }
 
 
-def build() -> dict:
-    """Compile every variant in parallel; returns name -> loaded library."""
+def build(variants: dict = VARIANTS, out_dir: Path = OUT_DIR) -> dict:
+    """Compile every variant ({name: (source, [(old, new)], exact)}) in
+    parallel under ``out_dir``; returns name -> loaded library."""
     from deepfake_vit_tpu_torch.ops import cuda_build
 
     nvcc = cuda_build._nvcc()
     procs = []
-    for k, (name, (src, pairs, _)) in enumerate(VARIANTS.items()):
-        vdir = OUT_DIR / f"v{k}"
+    for k, (name, (src, pairs, _)) in enumerate(variants.items()):
+        vdir = out_dir / f"v{k}"
         shutil.rmtree(vdir, ignore_errors=True)
         vdir.mkdir(parents=True)
         for cu in cuda_build.sources():
             text = cu.read_text()
             if cu.name == src:
                 for old, new in pairs:
-                    if old not in text:
-                        sys.exit(f"mma_variants: {name!r}: csrc/{src} has no line {old.strip()!r}")
+                    if text.count(old) != 1:
+                        sys.exit(f"{out_dir.name}: {name!r}: csrc/{src} does not hold the line "
+                                 f"{old.strip()!r} once")
                     text = text.replace(old, new)
             (vdir / cu.name).write_text(text)
         so = vdir / "lib.so"
@@ -82,7 +84,7 @@ def build() -> dict:
     for name, so, proc in procs:
         _, err = proc.communicate()
         if proc.returncode:
-            sys.exit(f"mma_variants: nvcc failed on {name!r}:\n{err[-3000:]}")
+            sys.exit(f"{out_dir.name}: nvcc failed on {name!r}:\n{err[-3000:]}")
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in cuda_build._SIGNATURES.items():
             getattr(lib, fn).argtypes = argtypes

@@ -152,6 +152,68 @@ def test_crop_pool_kernel_matches_plain(dev, pixels):
     assert torch.equal(got[k].reshape(window, window, C), src)
 
 
+def _device_launches(fn):
+    """The names of the device kernels one call of fn() launches, one entry a
+    launch, from the profiler. Now and then a profile comes back without any
+    device record (chip_smoke.device_ms retakes those too); every call
+    launches at least one kernel, so an empty profile is taken again."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(5):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        launched = [ev.key for ev in prof.key_averages()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA for _ in range(ev.count)]
+        if launched:
+            break
+    return launched
+
+
+@pytest.mark.parametrize("W", [640, 644])
+@pytest.mark.parametrize("pixels", ["integer", "general"])
+def test_crop_pool_kernel_edges(dev, W, pixels):
+    """Faces at every residue of x0·2ˡ·C·2 mod 16 at levels 0-2 (and 3, past
+    the geometry's, whose output rows span two stages), windows partly and
+    wholly outside the frame on every side, several faces a frame; W = 644
+    takes the per-element path (rows differ in phase). Integer-valued
+    pixels: bit for bit; general bf16 pixels: within one bf16 step. One
+    device launch a call, with frame_idx None too."""
+    H, C, window, B = 320, 3, 64, 6
+    faces = []  # (level, level-0 row offset, selected-level column offset)
+    for l in range(4):
+        for k in range(8):  # x0 << l residues 0..7 (mod 8 elements: every 16-byte residue)
+            faces.append((l, (k * 37) % (H - (window << min(l, 2))) - 8 * (k == 3), 8 * k + k))
+        faces += [(l, -(window << l) // 2, -window // 2), (l, H - (window << l) // 3, 3),
+                  (l, 5, (W >> l) - window // 3), (l, -(window << l) - 4, 0),
+                  (l, 0, (W >> l) + 2)]
+    level = torch.tensor([f[0] for f in faces], dtype=torch.int32, device=dev)
+    y0_l0 = torch.tensor([f[1] for f in faces], dtype=torch.int32, device=dev)
+    x0 = torch.tensor([f[2] for f in faces], dtype=torch.int32, device=dev)
+    N = len(faces)
+    g = torch.Generator(device="cpu").manual_seed(W)
+    frames = torch.rand((B, H, W * C), generator=g) * 255
+    frames = (frames.round() if pixels == "integer" else frames).to(torch.bfloat16).to(dev)
+    fidx = torch.arange(N, device=dev).int() % B
+    before = wk.crop_pool.launches
+    got = wk.crop_pool(frames, y0_l0, x0, level, window, C, frame_idx=fidx)
+    torch.cuda.synchronize()
+    assert wk.crop_pool.launches == before + 1
+    launched = _device_launches(
+        lambda: wk.crop_pool(frames, y0_l0, x0, level, window, C, frame_idx=fidx))
+    assert len(launched) == 1 and "crop_pool_band_kernel" in launched[0], launched
+    want = wk.crop_pool_plain(frames, y0_l0, x0, level, window, C, fidx)
+    if pixels == "integer":
+        assert torch.equal(got, want)
+    else:
+        assert (got.float() - want.float()).abs().max() <= 1.0  # one bf16 step below 256
+    assert not got[-1].float().any() and not got[-2].float().any()  # wholly outside
+    # frame_idx None: one frame a face, still one launch.
+    own = frames[fidx.long()]
+    launched = _device_launches(lambda: wk.crop_pool(own, y0_l0, x0, level, window, C))
+    assert len(launched) == 1 and "crop_pool_band_kernel" in launched[0], launched
+    assert torch.equal(wk.crop_pool(own, y0_l0, x0, level, window, C), got)
+
+
 @pytest.mark.parametrize("M,K,N,scales,bias", [
     (128 * 576, 56, 336, 1, True),       # largest M of the tail, K not a multiple of 32 or 16
     (128 * 144, 160, 960, 128, True),    # K = 5 mma steps, per-image dynamic scales
@@ -421,8 +483,16 @@ def test_fused_block_kernel_matches_plain(dev, args, h, B):
 
 
 @pytest.mark.parametrize("variant,shape", [("b0", (2, 20, 12, 3)), ("b4", (4, 192, 192, 3)),
-                                           ("b4", (4, 224, 224, 3))])
+                                           ("b4", (4, 224, 224, 3)), ("b4", (3, 10, 212, 3)),
+                                           ("b7", (2, 18, 300, 3)), ("b4", (32, 192, 192, 3))],
+                         ids=["b0-W%8=4", "b4@192", "b4@224", "b4-3-bands-W%8=4",
+                              "b7-5-bands-2-segments-W%8=4", "b4@192-B32-items-outnumber-blocks"])
 def test_fused_stem_kernel_matches_plain(dev, variant, shape):
+    """Within two bf16 steps (the tensor cores' order of the 27-term sum),
+    one device launch a call; odd band counts with a ragged last band, rows
+    not a multiple of 16 bytes (4-byte copies), two column segments, and
+    more work items than resident blocks (each block walks several, staging
+    the next while it computes one)."""
     bb = _randomize_bn(init_weights(EfficientNetBackbone(variant), 3), 4).to(dev).eval()
     w = fs.fold_stem_weights(bb)
     g = torch.Generator(device="cpu").manual_seed(shape[1])
@@ -431,6 +501,8 @@ def test_fused_stem_kernel_matches_plain(dev, variant, shape):
     got = fs.run_stem(x, w)
     torch.cuda.synchronize()
     assert fs.run_stem.launches == before + 1
+    launched = _device_launches(lambda: fs.run_stem(x, w))
+    assert len(launched) == 1 and "fused_stem_kernel" in launched[0], launched
     assert got.shape == (shape[0], shape[1] // 2, shape[2] // 2, w[0].shape[0])
     _assert_two_bf16_steps(got, fs.run_stem_plain(x, w))
 
