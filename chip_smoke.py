@@ -565,10 +565,12 @@ def check_int8_conv(ik, dev, convs, k_major: bool, batch: int = 128) -> list:
     return rows
 
 
-def check_crop_pool(wk, frames_flat, A_inv, dev) -> list:
+def check_crop_pool(wk, frames_flat, A_inv, dev, check_launches: bool = True) -> list:
     """crop_pool vs its plain version at path B's shape (128 faces, one
     frame each, frame_idx None) and path F's (96 face slots sharing 32
-    frames, 3 a frame): 640² frames, window 160. Returns one row a shape."""
+    frames, 3 a frame): 640² frames, window 160; one device launch a call
+    unless ``check_launches`` is cleared (for an earlier checkout's kernels,
+    which launched more). Returns one row a shape."""
     from deepfake_vit_tpu_torch.ops.warp import max_window_levels, window_geometry
 
     N, H, WC = frames_flat.shape
@@ -596,7 +598,7 @@ def check_crop_pool(wk, frames_flat, A_inv, dev) -> list:
         err = (got.float() - wk.crop_pool_plain(*plain_args).float()).abs().max().item()
         t = time_ms(lambda: wk.crop_pool(*args, **kw))
         d = device_ms(lambda: wk.crop_pool(*args, **kw), "crop_pool")
-        if hasattr(wk, "crop_pool_plan"):  # an earlier checkout may launch more
+        if check_launches:
             one_launch("crop_pool", d, "crop_pool_band_kernel")
         plain = time_ms(lambda: wk.crop_pool_plain(*plain_args), iters=3, repeats=3)
         # The source pixels on the frame that the face's 4^l blocks cover,
@@ -687,15 +689,15 @@ def block_inputs(fs, bb, variant: str, idx: int, h: int, B: int, g, dev):
     return blk, args, bp, weights, x
 
 
-def check_fused(fs, fm, dev):
+def check_fused(fs, fm, dev, check_launches: bool = True):
     """run_stem, run_block and fused_mbconv against their plain versions at
-    B4's shapes, on seeded weights and inputs. Returns (stem rows, block
-    rows, prototype rows)."""
+    B4's shapes, on seeded weights and inputs (``check_launches`` goes to
+    check_stem). Returns (stem rows, block rows, prototype rows)."""
     from deepfake_vit_tpu_torch.models.efficientnet import EfficientNetBackbone
     from deepfake_vit_tpu_torch.models.layers import init_weights
 
     bb = init_weights(EfficientNetBackbone("b4", dtype=torch.bfloat16), 1).to(dev).eval()
-    stem_rows = check_stem(fs, bb, dev)
+    stem_rows = check_stem(fs, bb, dev, check_launches)
     # The blocks' inputs follow the first stem input in one seeded stream.
     g = torch.Generator(device="cpu").manual_seed(3)
     torch.randint(0, 256, (STEM_SHAPES[0][0], *STEM_SHAPES[0][1], 3), generator=g)
@@ -733,9 +735,10 @@ def check_fused(fs, fm, dev):
 STEM_SHAPES = ((128, FACE), (BATCH, POOL_FACE))
 
 
-def check_stem(fs, bb, dev) -> list:
+def check_stem(fs, bb, dev, check_launches: bool = True) -> list:
     """run_stem vs its plain version at STEM_SHAPES on B4's seeded stem and
-    seeded faces; one device launch a call. Context, not the same function
+    seeded faces; one device launch a call unless ``check_launches`` is
+    cleared (as for check_crop_pool). Context, not the same function
     (no SiLU): one cuDNN convolution in bf16, channels-last, with the folded
     weights and bias, on the input padded beforehand (the port never calls
     it)."""
@@ -757,7 +760,7 @@ def check_stem(fs, bb, dev) -> list:
         agree = fused_agreement("run_stem", got, fs.run_stem_plain(x, sw))
         t = time_ms(lambda: fs.run_stem(x, sw))
         d = device_ms(lambda: fs.run_stem(x, sw), "fused_stem")
-        if hasattr(fs, "stem_plan"):  # an earlier checkout may launch more
+        if check_launches:
             one_launch("run_stem", d, "fused_stem_kernel")
         plain = time_ms(lambda: fs.run_stem_plain(x, sw), iters=3, repeats=3)
         x_nchw = x.permute(0, 3, 1, 2)

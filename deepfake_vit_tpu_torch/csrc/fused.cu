@@ -91,7 +91,11 @@
 
 #include <algorithm>
 
+#include "dfv_common.cuh"
+
 namespace {
+
+using namespace dfv;
 
 typedef __nv_bfloat16 bf16;
 
@@ -171,26 +175,6 @@ constexpr int STEM_THREADS = 128;
 constexpr int STEM_WARPS = STEM_THREADS / 32;
 constexpr int STEM_NT = 8;  // n8 tiles of one channel group: 64 channels
 
-// floor(v / d) for v * d < 2^32: v times the reciprocal ceil(2^32 / d).
-__device__ __forceinline__ unsigned recip32(unsigned d) { return 0xffffffffu / d + 1u; }
-__device__ __forceinline__ unsigned div_by(unsigned v, unsigned d, unsigned rcp) {
-  return d == 1u ? v : __umulhi(v, rcp);
-}
-
-// kCopy-byte asynchronous copy whose first src_bytes come from gmem_src and
-// the rest are zeros.
-template <int kCopy>
-__device__ __forceinline__ void cp_async_zfill(void* smem_dst, const void* gmem_src,
-                                               int src_bytes) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
-  if (kCopy == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
-                 "r"(src_bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem_src),
-                 "r"(src_bytes));
-}
-
 // Dynamic shared memory: two buffers of staged input rows ([2*rows + 1][rs]
 // bf16 each), then the block's output ([rows*seg][cstem + 8] bf16: the
 // 8-element pad puts the eight pixels of a fragment store in distinct banks).
@@ -199,11 +183,14 @@ __device__ __forceinline__ void cp_async_zfill(void* smem_dst, const void* gmem_
 // kNT: cstem / 8 when one channel group of at most STEM_NT n8 tiles holds
 // every channel (its loops then have constant bounds and its fragments take
 // only the registers they need), 0 for any cstem (groups of STEM_NT tiles).
-// At most 96 registers a thread, so that five blocks share an SM: the
-// precise SiLU is a chain of dependent instructions, and more warps hide it
-// (tools/stem_pool_variants.py: 3, 4 or 6 blocks an SM, or no bound, are
-// slower). The general instantiation (kNT = 0) spills a little at this
-// bound; it serves no path.
+// Only B4's 48 channels (kNT = 6) are instantiated so: on an NVIDIA H100
+// 80GB HBM3 at 700 W it takes 0.103 ms at (128, 192, 192) and 0.043 at
+// (32, 224, 224), the general instantiation 0.132 and 0.056
+// (tools/stem_pool_variants.py, in one run). At most 96 registers a
+// thread, so that five blocks share an SM: the precise SiLU is a chain of
+// dependent instructions, and more warps hide it (tools/stem_pool_variants.py:
+// 3, 4 or 6 blocks an SM, or no bound, are slower). The general
+// instantiation (kNT = 0) spills a little at this bound; it serves no path.
 template <int kCopy, int kNT>
 __global__ void __launch_bounds__(STEM_THREADS, 5)
 fused_stem_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
@@ -250,10 +237,10 @@ fused_stem_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
       const int nb = iy < H ? min(kCopy, max(0, valid_b - off)) : 0;
       const unsigned char* src =
           nb > 0 ? xb + ((size_t)t.bi * H + iy) * rowb + col0b + off : xb;
-      cp_async_zfill<kCopy>(reinterpret_cast<unsigned char*>(dst) + (size_t)r * rs * 2 + off,
+      cp_async<kCopy>(reinterpret_cast<unsigned char*>(dst) + (size_t)r * rs * 2 + off,
                             src, nb);
     }
-    asm volatile("cp.async.commit_group;\n" ::);
+    cp_async_commit();
   };
 
   // This thread's K columns: pair h of k step s is c = 16s + 8h + 2*t4, at
@@ -307,9 +294,9 @@ fused_stem_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     const bf16* in = inS[it & 1];
     if (i + (int)gridDim.x < items) {  // the next item's rows fly while this one computes
       stage(item_of(i + gridDim.x), inS[(it + 1) & 1]);
-      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      cp_async_wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      cp_async_wait<0>();
     }
     __syncthreads();
 
@@ -844,19 +831,11 @@ extern "C" int dfv_fused_stem(const void* x, const void* w, const void* b, void*
   const int segs = (W / 2 + seg - 1) / seg, bands = (H / 2 + rows - 1) / rows;
   const long long items = (long long)B * segs * bands;
   if (items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  // B4's and every EfficientNet stem width (32-64 channels) have their own
-  // instantiation at 16-byte copies; the rest share the general one.
-  auto kernel = fused_stem_kernel<4, 0>;
-  if (copy_bytes == 16) {
-    switch (cstem) {
-      case 32: kernel = fused_stem_kernel<16, 4>; break;
-      case 40: kernel = fused_stem_kernel<16, 5>; break;
-      case 48: kernel = fused_stem_kernel<16, 6>; break;
-      case 56: kernel = fused_stem_kernel<16, 7>; break;
-      case 64: kernel = fused_stem_kernel<16, 8>; break;
-      default: kernel = fused_stem_kernel<16, 0>;
-    }
-  }
+  // B4's 48 channels at 16-byte copies, the one stem a served path runs,
+  // have their own instantiation; every other shape takes the general one.
+  auto kernel = copy_bytes == 4 ? fused_stem_kernel<4, 0>
+                : cstem == 48   ? fused_stem_kernel<16, 6>
+                                : fused_stem_kernel<16, 0>;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);

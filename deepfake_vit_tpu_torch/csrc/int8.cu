@@ -64,7 +64,11 @@
 
 #include <type_traits>
 
+#include "dfv_common.cuh"
+
 namespace {
+
+using namespace dfv;
 
 // ---------------------------------------------------------------------------
 // The tensor-core tile product shared by the GEMM and the convolution.
@@ -75,24 +79,6 @@ constexpr int WM = 64, WN = 32;  // warp tile: 4 x 4 m16n8 tiles
 constexpr int BK = 64;           // K step: two m16n8k32 steps
 constexpr int kStages = 3;       // cp.async pipeline depth
 constexpr int kRowBytes = BK + 16;  // smem row stride: ldmatrix rows hit distinct banks
-
-template <int kW>  // bytes per copy: 16, 8 or 4; zero-filled where !valid
-__device__ __forceinline__ void cp_async(void* smem_dst, const void* src, bool valid) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
-  const int n = valid ? kW : 0;
-  if constexpr (kW == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src), "n"(kW),
-                 "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* smem_row) {
   const unsigned a = (unsigned)__cvta_generic_to_shared(smem_row);
@@ -133,7 +119,8 @@ __device__ __forceinline__ void load_tile(unsigned char* dst, const int8_t* __re
     const int rr = u / kPerRow, cc = u % kPerRow;
     const int row = row0 + rr, k = k0 + cc * kW;
     const bool ok = row < rows && k < K;
-    cp_async<kW>(dst + rr * kRowBytes + cc * kW, ok ? src + (size_t)row * K + k : src, ok);
+    cp_async<kW>(dst + rr * kRowBytes + cc * kW, ok ? src + (size_t)row * K + k : src,
+                 ok ? kW : 0);
   }
 }
 
@@ -337,7 +324,7 @@ int8_conv_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wt,
       const int4 row = rowS[rr];
       const bool ok = kin && (unsigned)(row.y + tr) < (unsigned)H &&
                       (unsigned)(row.z + tc) < (unsigned)W;
-      cp_async<kW>(dst + rr * kRowBytes + cc * kW, ok ? xq + row.x + koff : xq, ok);
+      cp_async<kW>(dst + rr * kRowBytes + cc * kW, ok ? xq + row.x + koff : xq, ok ? kW : 0);
     }
   };
   tile_product<Cfg, kW>(load_a, smem, wt, sx, sw, bias, out, M, K, Cout, rows_per_scale, m0, n0);

@@ -34,7 +34,11 @@
 #include <climits>
 #include <cmath>
 
+#include "dfv_common.cuh"
+
 namespace {
+
+using namespace dfv;
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -65,16 +69,6 @@ __device__ __forceinline__ float tap_bf16(float s, int t) {
 // off + (i + 0.5) * r - 0.5, evaluated left to right without contraction.
 __device__ __forceinline__ float window_coord(float off, int i, float r) {
   return __fsub_rn(__fadd_rn(off, __fmul_rn(__fadd_rn((float)i, 0.5f), r)), 0.5f);
-}
-
-// 16-byte asynchronous copy, device memory -> shared memory (sm_80+).
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -263,9 +257,10 @@ crop_frac_band_kernel(const __nv_bfloat16* __restrict__ frames,
           strip + (size_t)slot_row[j] * rowlen + span_off);
       const unsigned char* src =
           reinterpret_cast<const unsigned char*>((uintptr_t)begin & ~(uintptr_t)15) + 16 * q;
-      if (src < begin + span) cp_async16(slots + j * stride + 16 * q, src);
+      if (src < begin + span) cp_async<16>(slots + j * stride + 16 * q, src, 16);
     }
-    cp_async_wait_all();
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
 
     // 3. Resample: eight consecutive outputs of one row per thread.
@@ -360,26 +355,6 @@ crop_frac_band_kernel(const __nv_bfloat16* __restrict__ frames,
 constexpr int kPoolThreads = 256;
 constexpr int kPoolWarps = kPoolThreads / 32;
 
-__device__ __forceinline__ void cp_async16_zfill(void* smem_dst, const void* gmem_src,
-                                                 int src_bytes) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem_src),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// floor(v / d) for v * d < 2^32: v times the reciprocal ceil(2^32 / d).
-__device__ __forceinline__ unsigned recip32(unsigned d) { return 0xffffffffu / d + 1u; }
-__device__ __forceinline__ unsigned div_by(unsigned v, unsigned d, unsigned rcp) {
-  return d == 1u ? v : __umulhi(v, rcp);
-}
-
 // Dynamic shared memory: two stage buffers of stage_bytes, f32 carries of
 // one slot's elements (2 * slot_cap bytes), the stage's output rows
 // (out_rows * window * C bf16). slot_cap is the plan's slot: the 16-byte
@@ -443,8 +418,8 @@ crop_pool_band_kernel(const __nv_bfloat16* __restrict__ frames, __nv_bfloat16* _
       for (int q = lane; q < nch; q += 32) {
         const unsigned char* src = a + 16 * q;
         if (src < begin + 2 * span)
-          cp_async16_zfill(buf + i * slot + 16 * q, src,
-                           (int)min(16LL, (long long)(frames_end - src)));
+          cp_async<16>(buf + i * slot + 16 * q, src,
+                       (int)min(16LL, (long long)(frames_end - src)));
       }
     }
     cp_async_commit();

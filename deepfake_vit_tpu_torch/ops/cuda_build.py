@@ -4,8 +4,9 @@ Every source is compiled with ``nvcc`` for ``sm_90a`` (one compiler process
 per source, all started together), linked into one shared library with a
 plain C interface under ``build/deepfake_vit_tpu_torch/`` at the repository
 root, and loaded with ``ctypes``. The library's name carries the hash of all
-sources, so it is rebuilt only when a source changes. Nothing happens at
-import: the first kernel call builds.
+sources and of the header they share (``csrc/*.cuh``), so it is rebuilt only
+when one of them changes. Nothing happens at import: the first kernel call
+builds.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "deepfake_vit_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-I", str(CSRC_DIR))
 # The sm_90a card the kernels are planned for (H100): shared memory one
 # block can ask for (227 KB) and streaming multiprocessors.
 SMEM_PER_BLOCK = 232448
@@ -62,14 +63,15 @@ def sources() -> list:
 
 
 def build_library(verbose: bool = False) -> Path:
-    """Compile ``csrc/*.cu`` unless a library for their current hash exists.
+    """Compile ``csrc/*.cu`` unless a library for their and the headers'
+    current hash exists.
 
     Returns the path of the shared library. ``verbose`` adds ``-Xptxas -v``
     and prints the compiler's report (registers, shared memory, spills).
     """
     srcs = sources()
     digest = hashlib.sha256()
-    for src in srcs:
+    for src in [*srcs, *sorted(CSRC_DIR.glob("*.cuh"))]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out = BUILD_DIR / f"libdfv_kernels_{digest.hexdigest()[:16]}.so"

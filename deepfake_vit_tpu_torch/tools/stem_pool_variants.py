@@ -71,6 +71,9 @@ VARIANTS = {
         "  const int blocks = (int)items;")], True),
     "256 threads a block": ("fused.cu", [("constexpr int STEM_THREADS = 128;",
                                           "constexpr int STEM_THREADS = 256;")], True),
+    "the general instantiation (no constant channel count)": ("fused.cu", [(
+        "                : cstem == 48   ? fused_stem_kernel<16, 6>",
+        "                : cstem == -48  ? fused_stem_kernel<16, 6>")], True),
 }
 STEM_PIXELS = (256, 128, 384, 512)
 POOL_PLANS = ((8, 16384, 4), (4, 16384, 4), (16, 16384, 4), (8, 32768, 4), (8, 16384, 8),

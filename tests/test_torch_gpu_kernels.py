@@ -484,15 +484,18 @@ def test_fused_block_kernel_matches_plain(dev, args, h, B):
 
 @pytest.mark.parametrize("variant,shape", [("b0", (2, 20, 12, 3)), ("b4", (4, 192, 192, 3)),
                                            ("b4", (4, 224, 224, 3)), ("b4", (3, 10, 212, 3)),
-                                           ("b7", (2, 18, 300, 3)), ("b4", (32, 192, 192, 3))],
+                                           ("b7", (2, 18, 300, 3)), ("b4", (32, 192, 192, 3)),
+                                           ("b0", (2, 20, 16, 3)), ("b7", (2, 18, 304, 3))],
                          ids=["b0-W%8=4", "b4@192", "b4@224", "b4-3-bands-W%8=4",
-                              "b7-5-bands-2-segments-W%8=4", "b4@192-B32-items-outnumber-blocks"])
+                              "b7-5-bands-2-segments-W%8=4", "b4@192-B32-items-outnumber-blocks",
+                              "b0-16-byte-copies", "b7-16-byte-copies-2-segments"])
 def test_fused_stem_kernel_matches_plain(dev, variant, shape):
     """Within two bf16 steps (the tensor cores' order of the 27-term sum),
     one device launch a call; odd band counts with a ragged last band, rows
-    not a multiple of 16 bytes (4-byte copies), two column segments, and
-    more work items than resident blocks (each block walks several, staging
-    the next while it computes one)."""
+    not a multiple of 16 bytes (4-byte copies), two column segments, more
+    work items than resident blocks (each block walks several, staging the
+    next while it computes one), and widths other than B4's 48 channels at
+    16-byte copies (the general instantiation)."""
     bb = _randomize_bn(init_weights(EfficientNetBackbone(variant), 3), 4).to(dev).eval()
     w = fs.fold_stem_weights(bb)
     g = torch.Generator(device="cpu").manual_seed(shape[1])
