@@ -36,12 +36,26 @@
    beside the largest difference. A warp geometry phase runs every warp construction on rolls of
    0°, 30°, 90° and 180°, a mirror, sources wholly and partly outside and a
    whole-frame down-scale, bit for bit, and prints which tiles staged their
-   source box and which read from device memory (both must run).
-4. Checks each pipeline on the card against the same pipeline on the CPU
+   source box and which read from device memory (both must run). Prints,
+   as context, path G's s2d stages' device time beside the stock blocks
+   they replace (a seeded B4).
+4. The inference entry point: ``DeepfakePredictor.from_packaged`` (the
+   committed b0 classifier and SCRFD) on a 5-frame 1280×720 clip
+   (letterboxed into the 640² canvas) and a 32-frame 640² clip of drawn
+   faces, held to the same predictor on the CPU in float32, then timed in
+   bf16 on the card (ms a clip, host clock) with one warp launch a clip,
+   and a B4 predictor at full width (seeded) on the 640² clip; the
+   whole-frame warp at the clips' shapes and on two 1920×1080 frames, bit
+   for bit against its plain version, with the tiles that read from device
+   memory counted (at least one must), timed beside ``F.grid_sample`` and
+   its bound; ``PreprocessingPipeline(PREPROCESSING_CONFIG)``'s one-graph
+   batch of 32 frames on the card against the CPU. It runs before the
+   serving profiles: after them ``torch.profiler`` loses device records.
+5. Checks each pipeline on the card against the same pipeline on the CPU
    (plain kernel versions, float32) on two frames with drawn faces (three
    faces of different sizes a frame for the multi-face path).
-5. Serves seven paths for a few batches at B = 32 and B = 128, twice, in
-   turns (A, B, bf16, C, D, E, F, then back) — all EfficientNet-B4 at full
+6. Serves eight paths for a few batches at B = 32 and B = 128, twice, in
+   turns (A, B, bf16, C, D, E, F, G, then back) — all EfficientNet-B4 at full
    width and depth (seeded weights), committed detector weights, 320²
    detection on 640² uint8 frames, bf16 — with every kernel's launch count
    reset just before and read just after each:
@@ -57,15 +71,17 @@
      (rank-1 "mxu" crop, int8 warp);
    * path F, multi-face serving: the class default geometry with the lite
      detector, ``keep_top_k=3`` and ``warp_tap_mode="uw16"``, at B = 32
-     only (96 faces a batch).
+     only (96 faces a batch);
+   * path G, path A with ``use_s2d_early``: the stem and blocks 0-2 on the
+     space-to-depth layout, the tail calibrated on G's own activations.
    Then drives what no pipeline runs: the single-block prototype on two B4
    block shapes, held to the unfused module, and the "uw" warp through
    ``warp_affine_windowed(tap_construction="uw")``, held to "uw16".
-6. Where the serving time goes: one batch per path and size under
+7. Where the serving time goes: one batch per path and size under
    ``torch.profiler`` — device busy time against the batch time (the idle
    share), device time by kernel class, top kernels.
 
-Prints one JSON line with the kernels' numbers, then
+Prints its wall time, one JSON line with the kernels' numbers, then
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero without a
 card, when a kernel does not build or disagrees, or when any check fails.
 Writes the same numbers and the profile to ``chiprun_out/chip_smoke.json``.
@@ -122,6 +138,7 @@ EXPECTED = {path: {**dict.fromkeys(KERNEL_NAMES, 0), **counts} for path, counts 
                                            "run_stem": 1, "run_block": 22},
     "E int8-tap headline": {**_INT8, "crop_frac_mxu": 1, "warp_affine_int8": 1},
     "F multi-face, lite detector": {"crop_pool": 1, "warp_affine_uw16": 1},
+    "G s2d + int8 headline": {**_INT8, "crop_frac": 1, "warp_affine_legacy": 1},
 }.items()}
 # Batch sizes each path is served at (and profiled at, in the first round).
 PATH_BATCHES = {path: (BATCH,) if path.startswith(("D", "F")) else PROFILE_BATCHES
@@ -317,21 +334,22 @@ def warp_footprint_bytes(coeffs, Hs, Ws, C, out_size) -> int:
 
 
 def build_pipeline(path: str, dtype=torch.bfloat16, device=None, scales=None):
-    """One of the seven served configurations. Paths A and E are calibrated
-    as the JAX benchmark calibrates its headline (8 uniform-noise faces, 4
-    uniform-noise frames, seeded) unless ``scales`` hands the scales over."""
+    """One of the eight served configurations. Paths A, E and G are
+    calibrated as the JAX benchmark calibrates its headline (8 uniform-noise
+    faces, 4 uniform-noise frames, seeded; G's tail on its own s2d
+    activations) unless ``scales`` hands the scales over."""
     from deepfake_vit_tpu_torch.configs import MODEL_CONFIG
     from deepfake_vit_tpu_torch.e2e import FusedPipeline
 
     common = dict(detection_input_size=DETECT, serving_size=SERVING, confidence_threshold=0.0,
                   dtype=dtype, device=device)
-    int8 = path.startswith(("A", "E"))
+    int8 = path.startswith(("A", "E", "G"))
     if int8:
         tail_scales, det_scales = scales or (None, None)
         pipe = FusedPipeline(MODEL_CONFIG, use_int8_tail=True, int8_tail_start=TAIL_START,
                              warp_window=WINDOW, warp_fractional=True, use_int8_detector=True,
                              output_size=FACE, int8_act_scales=tail_scales,
-                             det_act_scales=det_scales,
+                             det_act_scales=det_scales, use_s2d_early=path.startswith("G"),
                              warp_tap_mode="int8" if path.startswith("E") else "legacy", **common)
     elif path.startswith(("B", "D", "F")):  # default warp arguments and face size
         extra = (dict(detector_arch="lite", keep_top_k=MULTI_K, warp_tap_mode="uw16")
@@ -359,31 +377,33 @@ def seeded_batches(batch: int, n: int, seed: int):
             for _ in range(n)]
 
 
-def drawn_face_frames(n: int, size: int, seed: int, faces: int = 1) -> np.ndarray:
+def drawn_face_frames(n: int, size, seed: int, faces: int = 1) -> np.ndarray:
     """n uint8 RGB frames with ``faces`` upright drawn faces each on a colour
     gradient (skin ellipse, sclera and iris, brows, nose, mouth): the
     committed detectors find these with confidence near 1, so the chosen
     faces are clear on the card and on the CPU alike. Several faces get a
-    vertical band of the frame each and sizes that differ by about 1.4×."""
+    vertical band of the frame each and sizes that differ by about 1.4×.
+    ``size`` is the side of a square frame or its (height, width)."""
+    h, w = (size, size) if isinstance(size, int) else size
     rng = np.random.default_rng(seed)
-    ys, xs = np.mgrid[0:size, 0:size].astype(np.float32)
-    frames = np.empty((n, size, size, 3), np.uint8)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = np.empty((n, h, w, 3), np.uint8)
 
     def ellipse(img, cx, cy, ax, ay, color):
         img[((xs - cx) / ax) ** 2 + ((ys - cy) / ay) ** 2 <= 1.0] = color
 
-    band = size / faces
+    band = w / faces
     for i in range(n):
         base, gx, gy = rng.uniform(40, 200, 3), rng.normal(0, 0.1, 3), rng.normal(0, 0.1, 3)
         img = np.clip(base + gx * xs[..., None] + gy * ys[..., None], 0, 255).astype(np.float32)
         for k in range(faces):
             if faces == 1:  # the draws of the one-face frames the earlier paths check
-                hw = rng.uniform(0.08, 0.22) * size
+                hw = rng.uniform(0.08, 0.22) * min(h, w)
             else:
-                hw = min(0.22 * size, band / 3.4) / 1.4 ** k * rng.uniform(0.9, 1.0)
+                hw = min(0.22 * min(h, w), band / 3.4) / 1.4 ** k * rng.uniform(0.9, 1.0)
             hh = hw * rng.uniform(1.15, 1.4)
             cx = rng.uniform(band * k + 1.6 * hw, band * (k + 1) - 1.6 * hw)
-            cy = rng.uniform(1.2 * hh, size - 1.2 * hh)
+            cy = rng.uniform(1.2 * hh, h - 1.2 * hh)
             skin = np.asarray([230.0, 180.0, 150.0]) * rng.uniform(0.5, 1.0)
             ellipse(img, cx, cy, hw, hh, skin)
             ex, ey, er = 0.42 * hw, -0.28 * hh, max(2.0, 0.16 * hw)
@@ -1011,6 +1031,281 @@ def drive_prototype(fm, model, dev) -> int:
     return fm.fused_mbconv.launches
 
 
+# The predictor's clips (drawn faces): a video at 1280×720, letterboxed
+# into the 640² detection canvas, and one at 640²; the whole-frame warp
+# phase adds two 1920×1080 frames. Frames, height, width, seed. The seeds
+# give large faces whose tiles outgrow the warp's 24 KiB staging budget
+# (98 tiles of the 720p clip, all of the 1080p frames), and detection
+# scores at least 0.12 from the 0.5 threshold (24 of the 32 640² frames
+# hold a face above it; on the CPU, with the committed SCRFD).
+PREDICTOR_CLIPS = {"1280x720": (5, 720, 1280, 34), "640x640": (BATCH, 640, 640, 37)}
+WHOLE_FRAME_EXTRA = {"1920x1080": (2, 1080, 1920, 33)}
+PREDICTOR_PROB_TOL = 0.02  # fake_prob, card vs CPU (tests/test_torch_e2e.py's bound)
+# Aligned uint8 faces, card vs CPU: the detections differ by about 2e-4 px
+# (float32 convolutions in two orders); the warp's bf16 taps and sums are
+# step functions of the coordinates, so such a shift moves an output by up
+# to a tap step and two bf16 roundings (about 2.5 levels, 3 after the
+# truncation to uint8) at a few per cent of the pixels, by more than one
+# level at about 0.1 % (CPU, landmarks moved by 2e-4 px).
+ALIGNED_U8_TOL = 3.0
+PREDICTOR_REPEATS = 3
+
+
+def clip_frames(spec) -> np.ndarray:
+    n, h, w, seed = spec
+    return drawn_face_frames(n, (h, w), seed)
+
+
+def s2d_prefix_context(dev) -> dict:
+    """Path G's s2d stages (``S2DEarlyRunner`` of a seeded B4, 192² faces)
+    against the stock stem and blocks 0-2 they replace, on the same bf16
+    faces (B = 128): the device time of each and their largest difference
+    (context only: the s2d stages are held to JAX in
+    tests/test_torch_s2d_early.py)."""
+    from deepfake_vit_tpu_torch.models.efficientnet import EfficientNetBackbone
+    from deepfake_vit_tpu_torch.models.layers import init_weights
+    from deepfake_vit_tpu_torch.models.s2d_early import S2DEarlyRunner
+    from deepfake_vit_tpu_torch.ops.image import normalize_imagenet
+
+    backbone = init_weights(EfficientNetBackbone("b4", dtype=torch.bfloat16), 1).to(dev).eval()
+    runner = S2DEarlyRunner(backbone, image_size=FACE[0])
+    resume = runner.resume_block
+    g = torch.Generator(device="cpu").manual_seed(41)
+    faces = torch.randint(0, 256, (128, *FACE, 3), generator=g, dtype=torch.uint8).to(dev)
+    x = normalize_imagenet(faces.float() / 255.0).to(torch.bfloat16)
+
+    def stock():
+        with torch.inference_mode():
+            return backbone(x, stop_block=resume)
+
+    s2d_d, stock_d = device_ms(lambda: runner(x), iters=10), device_ms(stock, iters=10)
+    diff = (runner(x).float() - stock().float()).abs().max().item()
+    print(f"[context] path G's s2d stages (stem + blocks 0-{resume - 1}) at (128, {FACE[0]}², 3): "
+          f"device_ms {fmt_dev(s2d_d)}; the stock blocks they replace {fmt_dev(stock_d)}; "
+          f"largest difference {diff:.4f}")
+    return {"s2d_device_ms": s2d_d["ms"], "s2d_device_launches": s2d_d["launches"],
+            "stock_device_ms": stock_d["ms"], "stock_device_launches": stock_d["launches"],
+            "max_abs_diff": diff}
+
+
+def whole_frame_inputs(dev) -> dict:
+    """Per clip of PREDICTOR_CLIPS and WHOLE_FRAME_EXTRA, the frames with a
+    face (on the card) and the src→dst affines the predictor's aligner
+    warps them with: its detector and aligner (``PREPROCESSING_CONFIG``,
+    224² faces) on the card."""
+    from deepfake_vit_tpu_torch.configs import PREPROCESSING_CONFIG
+    from deepfake_vit_tpu_torch.preprocessing.aligner import FaceAligner
+    from deepfake_vit_tpu_torch.preprocessing.detector import create_face_detector
+
+    detector = create_face_detector(PREPROCESSING_CONFIG["detection"], device=dev)
+    template = PREPROCESSING_CONFIG["alignment"]["reference_landmarks"]
+    aligner = FaceAligner(output_size=POOL_FACE, reference_landmarks=template, device=dev)
+    warps = {}
+    for name, spec in {**PREDICTOR_CLIPS, **WHOLE_FRAME_EXTRA}.items():
+        frames = clip_frames(spec)
+        dets = detector.batch_detect(list(frames))
+        keep = [i for i, d in enumerate(dets) if d is not None]
+        if not keep:
+            fail(f"no face found in the {name} frames")
+        lms = torch.as_tensor(np.stack([dets[i]["landmarks"] for i in keep]), device=dev)
+        warps[name] = (torch.as_tensor(frames[keep]).to(dev), aligner._estimate(lms))
+    return warps
+
+
+def predictor_phase(kernels, dev) -> dict:
+    """DeepfakePredictor.from_packaged (the committed b0 classifier and
+    SCRFD) on the card: each clip held to the same predictor on the CPU in
+    float32 (num_faces identical, fake_prob within PREDICTOR_PROB_TOL,
+    labels equal away from the threshold), then served in bf16 on the card
+    with the kernels' launches counted (one warp a clip: its frames share a
+    shape) and ms per clip on the host clock; then a B4 predictor at full
+    width (seeded, bf16) on the 640² clip."""
+    from deepfake_vit_tpu_torch.configs import MODEL_CONFIG, PREPROCESSING_CONFIG
+    from deepfake_vit_tpu_torch.inference import DeepfakePredictor
+    from deepfake_vit_tpu_torch.preprocessing.detector import default_weights_path
+
+    packaged = default_weights_path("classifier")
+    clips = {name: clip_frames(spec) for name, spec in PREDICTOR_CLIPS.items()}
+    res = {}
+    with tf32_off():
+        card32 = DeepfakePredictor.from_packaged(packaged, PREPROCESSING_CONFIG,
+                                                 dtype=torch.float32, device=dev)
+        cpu32 = DeepfakePredictor.from_packaged(packaged, PREPROCESSING_CONFIG,
+                                                dtype=torch.float32, device="cpu")
+        for name, frames in clips.items():
+            got, want = card32.predict_frames(list(frames)), cpu32.predict_frames(list(frames))
+            err = abs(got["fake_prob"] - want["fake_prob"])
+            print(f"predictor, {name} clip of {len(frames)} frames: card vs CPU, float32: "
+                  f"num_faces {got['num_faces']} / {want['num_faces']}, fake_prob "
+                  f"{got['fake_prob']:.5f} / {want['fake_prob']:.5f} (|diff| {err:.5f}, limit "
+                  f"{PREDICTOR_PROB_TOL}), label {got['label']} / {want['label']}")
+            if got["num_faces"] != want["num_faces"] or got["num_faces"] == 0:
+                fail(f"predictor, {name}: num_faces {got['num_faces']} on the card, "
+                     f"{want['num_faces']} on the CPU")
+            if not err <= PREDICTOR_PROB_TOL:
+                fail(f"predictor, {name}: fake_prob differs by {err} between card and CPU")
+            if (got["label"] != want["label"]
+                    and abs(want["fake_prob"] - cpu32.threshold) > PREDICTOR_PROB_TOL):
+                fail(f"predictor, {name}: label {got['label']} on the card, {want['label']} on "
+                     "the CPU")
+            res[name] = {"frames": len(frames), "num_faces": got["num_faces"],
+                         "card_vs_cpu_fake_prob_err": err}
+        del card32, cpu32
+
+    card = DeepfakePredictor.from_packaged(packaged, PREPROCESSING_CONFIG, device=dev)
+    b4 = DeepfakePredictor(MODEL_CONFIG, PREPROCESSING_CONFIG, device=dev)  # seeded, bf16
+    for name, frames in [*clips.items(), ("B4, 640x640", clips["640x640"])]:
+        pred = b4 if name.startswith("B4") else card
+        listed = list(frames)
+        pred.predict_frames(listed)  # warm-up: cuDNN algorithm choice, allocator
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        out = pred.predict_frames(listed)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kernels}
+        want = {**dict.fromkeys(KERNEL_NAMES, 0), "warp_affine_legacy": 1}
+        if launches != want:
+            fail(f"predictor, {name} clip: launches {launches}, expected {want}")
+        if not (out["num_faces"] > 0 and all(math.isfinite(p) for p in out["frame_probs"])):
+            fail(f"predictor, {name} clip: {out['num_faces']} faces, probabilities "
+                 f"{out['frame_probs']}")
+        t0 = time.perf_counter()
+        for _ in range(PREDICTOR_REPEATS):
+            pred.predict_frames(listed)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / PREDICTOR_REPEATS
+        print(f"predictor ({'B4, seeded' if pred is b4 else 'packaged b0'}, bf16), {name} clip "
+              f"of {len(frames)} frames: {ms:.2f} ms a clip on the host clock "
+              f"({PREDICTOR_REPEATS} clips after one warm-up), {out['num_faces']} faces, "
+              f"fake_prob {out['fake_prob']:.5f}; launches a clip {launches}")
+        res.setdefault(name, {}).update({"ms_per_clip": ms, "launches_per_clip": launches,
+                                         "fake_prob": out["fake_prob"],
+                                         "num_faces_bf16": out["num_faces"]})
+    return res
+
+
+def check_whole_frame_warp(wk, warps, out_size) -> list:
+    """warp_affine_legacy on whole frames, at the predictor's shapes: bit
+    for bit against its plain version, each tile's branch (staged box or
+    device memory) as warp_tile_box predicts, and at least one tile in the
+    device-memory branch; timed beside F.grid_sample on the same frames and
+    grid and against its bytes bound (the source pixels its nonzero taps
+    touch, read once; the float32 output written once)."""
+    import torch.nn.functional as F
+
+    from deepfake_vit_tpu_torch.ops.umeyama import invert_affine
+
+    rows, device_tiles = [], 0
+    for name, (frames, A) in warps.items():
+        img = frames.to(torch.bfloat16)
+        N, Hs, Ws, C = img.shape
+        if Hs * Ws * C >= 2 ** 31:
+            fail(f"whole-frame warp, {name}: {Hs * Ws * C} elements a frame")
+        coeffs = invert_affine(A).reshape(N, 6).float().contiguous()
+        got, branch = wk.warp_tile_branches("legacy", img, A, out_size)
+        torch.cuda.synchronize()
+        want = wk.warp_affine_legacy_plain(img, coeffs, out_size)
+        err = (got - want).abs().max().item()
+        if not torch.equal(got, want):
+            fail(f"whole-frame warp, {name}: differs from its plain version, max abs {err}")
+        box = wk.warp_tile_box(coeffs, out_size, (Hs, Ws), C)
+        if not torch.equal(branch, torch.where(box.staged, 1, 2).to(torch.int32)):
+            fail(f"whole-frame warp, {name}: the tiles' branches differ from warp_tile_box")
+        staged, from_memory = int((branch == 1).sum().item()), int((branch == 2).sum().item())
+        device_tiles += from_memory
+        A_inv = coeffs.reshape(N, 2, 3)  # the wrapper then launches the kernel alone
+
+        def run():
+            return wk.warp_affine_legacy(img, A_inv, out_size, inverse=True)
+
+        t, d = time_ms(run), device_ms(run, "warp_")
+        one_launch("warp_affine_legacy", d, "warp_tile_kernel")
+        plain = time_ms(lambda: wk.warp_affine_legacy_plain(img, coeffs, out_size), iters=3,
+                        repeats=3)
+        ii = torch.arange(out_size[0], dtype=torch.float32, device=img.device)[:, None]
+        jj = torch.arange(out_size[1], dtype=torch.float32, device=img.device)[None, :]
+        a, b, c, dd, e, f = (coeffs[:, k, None, None] for k in range(6))
+        grid = torch.stack([(2 * (a * jj + b * ii + c) + 1) / Ws - 1,
+                            (2 * (dd * jj + e * ii + f) + 1) / Hs - 1], -1)
+        src = img.permute(0, 3, 1, 2).float().contiguous()
+
+        def lib_call():
+            return F.grid_sample(src, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=False)
+
+        lib, lib_d = time_ms(lib_call), device_ms(lib_call)
+        nbytes = (warp_footprint_bytes(coeffs, Hs, Ws, C, out_size)
+                  + N * out_size[0] * out_size[1] * C * 4 + N * 6 * 4)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        shape = f"{N} whole {Ws}x{Hs} frames -> {out_size[0]}²"
+        print(f"warp_affine_legacy, whole frames, {shape}: max_abs {err} (tol {WARP_TOL}); tiles "
+              f"staged {staged}, from device memory {from_memory}; largest box "
+              f"{int(box.box_bytes.max().item())} bytes; kernel_ms {fmt(t)} device_ms "
+              f"{fmt_dev(d)} plain_ms {fmt(plain)} grid_sample_ms {fmt(lib)} device_ms "
+              f"{fmt_dev(lib_d)} bound_us {b_ms * 1e3:.2f} ({nbytes} bytes), "
+              f"{d['ms'] / b_ms:.2f}x")
+        rows.append({"shape": shape, "max_abs_err": err, "ms": t["median"],
+                     "ms_range": [t["min"], t["max"]], "device_ms": d["ms"],
+                     "device_kernels": d["kernels"], "plain_ms": plain["median"],
+                     "bound_ms": b_ms, "bound_by": "bytes", "library_ms": lib["median"],
+                     "library_device_ms": lib_d["ms"], "tiles_staged": staged,
+                     "tiles_device_memory": from_memory})
+        del src, grid, got, want
+    if not device_tiles:
+        fail("no tile of the whole-frame warps took the device-memory branch")
+    return rows
+
+
+def pipeline_phase(kernels, frames: np.ndarray, dev) -> dict:
+    """PreprocessingPipeline(PREPROCESSING_CONFIG)'s one-graph batch on the
+    card against the CPU run, float32 (detection) without TF32: the same
+    frames with a face, bboxes within 1e-2 px, quality within 1e-2, aligned
+    faces within ALIGNED_U8_TOL with fewer than 1 % of the values more than
+    one level apart; one warp launch a batch."""
+    from deepfake_vit_tpu_torch.configs import PREPROCESSING_CONFIG
+    from deepfake_vit_tpu_torch.preprocessing.pipeline import PreprocessingPipeline
+
+    with tf32_off():
+        card = PreprocessingPipeline(PREPROCESSING_CONFIG, device=dev)
+        card.process_batch(list(frames[:2]))  # warm-up
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        got = card.process_batch(list(frames))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k.__name__: k.launches for k in kernels}
+        want = PreprocessingPipeline(PREPROCESSING_CONFIG, device="cpu").process_batch(list(frames))
+    if launches != {**dict.fromkeys(KERNEL_NAMES, 0), "warp_affine_legacy": 1}:
+        fail(f"preprocessing pipeline: launches {launches}, expected one warp_affine_legacy")
+    err = {"bbox": 0.0, "aligned": 0.0, "quality": 0.0}
+    beyond_one, pixels = 0, 0
+    for g, w in zip(got, want):
+        if g.success != w.success:
+            fail("preprocessing pipeline: a face found on one side only")
+        if not g.success:
+            continue
+        err["bbox"] = max(err["bbox"], float(np.abs(g.bbox - w.bbox).max()))
+        diff = np.abs(g.aligned_face.astype(np.int32) - w.aligned_face.astype(np.int32))
+        err["aligned"] = max(err["aligned"], float(diff.max()))
+        beyond_one, pixels = beyond_one + int((diff > 1).sum()), pixels + diff.size
+        err["quality"] = max(err["quality"], abs(g.quality_score - w.quality_score))
+    found = sum(g.success for g in got)
+    err["aligned_share_beyond_1"] = beyond_one / max(pixels, 1)
+    limits = {"bbox": 1e-2, "aligned": ALIGNED_U8_TOL, "aligned_share_beyond_1": 0.01,
+              "quality": 1e-2}
+    print(f"preprocessing pipeline, fused batch of {len(frames)} frames at "
+          f"{frames.shape[2]}x{frames.shape[1]}: {found} faces; card vs CPU, float32: max_abs "
+          f"{err} (limits {limits}); {ms:.2f} ms for the batch on the host clock; launches "
+          f"{launches}")
+    if not found or not all(err[k] <= limits[k] for k in limits):
+        fail(f"preprocessing pipeline: the card disagrees with the CPU: {err} > {limits}")
+    return {"frames": len(frames), "faces": found, "card_vs_cpu_err": err, "ms_per_batch": ms,
+            "launches": launches}
+
+
 def card_vs_cpu(path: str, frames: np.ndarray, limits: dict) -> dict:
     """The pipeline on the card against the same pipeline on the CPU (plain
     kernel versions), float32 without TF32; path A hands the card's
@@ -1019,7 +1314,7 @@ def card_vs_cpu(path: str, frames: np.ndarray, limits: dict) -> dict:
     with tf32_off():
         for where in ("cuda", "cpu"):
             p = build_pipeline(path, torch.float32, where, scales)
-            if path.startswith(("A", "E")):
+            if path.startswith(("A", "E", "G")):
                 scales = (p.int8_act_scales, p.det_act_scales)
             outs[where] = {k: v.float().cpu().numpy() for k, v in p.forward(frames).items()}
             del p
@@ -1088,6 +1383,7 @@ def profile_batch(pipe, frames, batch_ms: float) -> dict:
 
 
 def main() -> None:
+    t_start = time.time()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
 
@@ -1186,9 +1482,25 @@ def main() -> None:
         fail(f"path A launched {len(convs)} detector convolutions, K-major kernels {k_major}")
     conv_rows = check_int8_conv(ik, dev, convs, k_major)
     stem_rows, block_rows, proto_rows = check_fused(fs, fm, dev)
+    s2d_context = s2d_prefix_context(dev)
     torch.cuda.empty_cache()
 
-    # 4. Each pipeline on the card vs on the CPU (plain kernel versions),
+    # 4. The inference entry point and the preprocessing pipeline: the
+    #    whole-frame warp at the predictor's shapes, the predictor on its
+    #    clips, the pipeline's one-graph batch. The warp's device times come
+    #    first: after the predictor's CPU runs, as after the serving
+    #    profiles of phase 7, the profiler lost device records in every try.
+    kernels = (wk.crop_frac, wk.crop_frac_mxu, wk.crop_pool, wk.warp_affine_legacy,
+               wk.warp_affine_uw, wk.warp_affine_uw16, wk.warp_affine_int8, ik.int8_gemm,
+               ik.int8_conv, fs.run_stem, fs.run_block, fm.fused_mbconv)
+    if tuple(k.__name__ for k in kernels) != KERNEL_NAMES:
+        fail("the counted kernels are not KERNEL_NAMES")
+    whole_rows = check_whole_frame_warp(wk, whole_frame_inputs(dev), POOL_FACE)
+    predictor = predictor_phase(kernels, dev)
+    pipeline = pipeline_phase(kernels, clip_frames(PREDICTOR_CLIPS["640x640"]), dev)
+    torch.cuda.empty_cache()
+
+    # 5. Each pipeline on the card vs on the CPU (plain kernel versions),
     #    float32. Float convolutions differ in the last place between cuDNN
     #    and the CPU; on the int8 path that now and then puts an activation
     #    on the other side of a rounding tie and moves it one quantization
@@ -1215,18 +1527,14 @@ def main() -> None:
         "F multi-face, lite detector": card_vs_cpu(
             "F multi-face, lite detector", drawn_face_frames(2, SERVING[0], 6, faces=3),
             {**tight, "confidence": 1e-3, "face_valid": 0.0}),
+        "G s2d + int8 headline": card_vs_cpu("G s2d + int8 headline", faces, int8_limits),
     }
 
-    # 5 + 6. The five paths, served in turns (A, B, bf16, C, D, then back:
+    # 6 + 7. The eight paths, served in turns (A, B, bf16, C, D, E, F, G, then back:
     #    end-to-end numbers compare only within one call, and the second
     #    round shows what the order does) and profiled once each. The same
     #    seeded batches feed all of them.
     served = {bsz: seeded_batches(bsz, N_BATCHES, bsz) for bsz in PROFILE_BATCHES}
-    kernels = (wk.crop_frac, wk.crop_frac_mxu, wk.crop_pool, wk.warp_affine_legacy,
-               wk.warp_affine_uw, wk.warp_affine_uw16, wk.warp_affine_int8, ik.int8_gemm,
-               ik.int8_conv, fs.run_stem, fs.run_block, fm.fused_mbconv)
-    if tuple(k.__name__ for k in kernels) != KERNEL_NAMES:
-        fail("the counted kernels are not KERNEL_NAMES")
     pipes = {path: pipe_a if path == "A int8 headline" else build_pipeline(path)
              for path in EXPECTED}
     paths = {path: {"launches_per_batch": expected, "rounds": [], "profile": []}
@@ -1318,7 +1626,8 @@ def main() -> None:
         row("crop_frac_mxu", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:564",
             e_launches["crop_frac_mxu"], mxu_row, construction="mxu"),
         row("warp_affine_legacy", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:101",
-            a_launches["warp_affine_legacy"], legacy_row, construction="legacy"),
+            a_launches["warp_affine_legacy"], legacy_row, [legacy_row, *whole_rows],
+            construction="legacy"),
         row("warp_affine_uw", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:101",
             uw_launches["warp_affine_uw"], rank1_rows["warp_affine_uw"], construction="uw"),
         row("warp_affine_uw16", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:101",
@@ -1350,14 +1659,19 @@ def main() -> None:
              "warp_geometry": geometry_rows,
              "crop_pool": pool_rows, "card_vs_cpu": card_vs_cpu_err, "paths": paths,
              "device_launches_per_fused_block": fs.LAUNCHES_PER_BLOCK,
+             "s2d_context": s2d_context, "predictor": predictor,
+             "whole_frame_warp": whole_rows, "preprocessing_pipeline": pipeline,
              "torch": torch.__version__, "cuda": torch.version.cuda}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps({**report, **extra}, indent=1))
     timings = [k["ms"] for k in report["kernels"]] + [
         r["faces_per_s"] for v in paths.values() for r in v["rounds"]]
     if not all(math.isfinite(v) for v in timings):
         fail("a timing is not finite")
+    wall = time.time() - t_start
+    (out_dir / "chip_smoke.json").write_text(json.dumps({**report, **extra, "wall_s": wall},
+                                                        indent=1))
+    print(f"chip_smoke wall time: {wall:.1f} s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

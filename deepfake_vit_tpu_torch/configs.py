@@ -1,8 +1,13 @@
-"""The headline model configuration as a Python dict.
+"""The headline model configuration and the preprocessing configuration as
+Python dicts.
 
-The ``model`` block of ``deepfake_vit_tpu/configs/model_config.yaml``
-(EfficientNet-B4 + hybrid attention + [512, 128, 32] head), kept here
-because the port reads no YAML. A test holds the two equal.
+``MODEL_CONFIG`` is the ``model`` block of
+``deepfake_vit_tpu/configs/model_config.yaml`` (EfficientNet-B4 + hybrid
+attention + [512, 128, 32] head); ``PREPROCESSING_CONFIG`` is the whole of
+``deepfake_vit_tpu/configs/preprocessing_config.yaml`` (its
+``detection.device`` key is data the port does not read). They are kept
+here so that the port's entry points need no YAML reader; tests hold each
+equal to its file.
 """
 
 MODEL_CONFIG = {
@@ -27,4 +32,84 @@ MODEL_CONFIG = {
             "num_classes": 2,
         },
     }
+}
+
+PREPROCESSING_CONFIG = {
+    "detection": {
+        "model": "scrfd",
+        "device": "tpu",
+        "confidence_threshold": 0.5,
+        "nms_threshold": 0.4,
+        "keep_top_k": 1,
+        "scrfd": {"input_size": [640, 640], "pretrained_path": None, "max_detections": 64},
+    },
+    "alignment": {
+        "output_size": [224, 224],
+        "reference_landmarks": {
+            "left_eye": [0.31, 0.32],
+            "right_eye": [0.69, 0.32],
+            "nose": [0.5, 0.55],
+            "left_mouth": [0.35, 0.75],
+            "right_mouth": [0.65, 0.75],
+        },
+        "method": "similarity",
+        "border_mode": "constant",
+        "border_value": 0,
+    },
+    "quality": {
+        "enabled": True,
+        "min_face_size": 50,
+        "max_face_size": 2000,
+        "blur_threshold": 100.0,
+        "check_occlusion": True,
+        "occlusion_threshold": 0.3,
+        "min_brightness": 30,
+        "max_brightness": 225,
+        "min_contrast": 20,
+    },
+    "pipeline": {
+        "normalize": {"enabled": True, "mean": [0.485, 0.456, 0.406],
+                      "std": [0.229, 0.224, 0.225]},
+        "color_space": "RGB",
+        "save_intermediate": True,
+        "save_format": "png",
+        "jpg_quality": 95,
+        "batch_size": 64,
+    },
+    "datasets": {
+        "lfw_fer": {"path": "data/raw/LFW-FER", "image_extension": ".jpg", "label_file": None},
+        "deeper_forensics": {
+            "path": "data/raw/DeeperForensics",
+            "real_folder": "real",
+            "fake_folder": "fake",
+            "image_extension": ".png",
+            "video_extensions": [".mp4"],
+            "frame_stride": 30,
+            "max_frames_per_video": 10,
+        },
+        "gen_ai": {
+            "path": "data/raw/GenAI",
+            "real_folder": "real",
+            "fake_folder": "fake",
+            "image_extensions": [".png", ".jpg", ".jpeg"],
+            "video_extensions": [".mp4"],
+            "frame_stride": 30,
+            "max_frames_per_video": 10,
+        },
+    },
+    "output": {
+        "base_dir": "data/processed",
+        "faces_dir": "faces",
+        "landmarks_dir": "landmarks",
+        "metadata_dir": "metadata",
+        "naming_pattern": "{dataset}_{label}_{id:06d}",
+        "metadata_format": "csv",
+    },
+    "logging": {
+        "level": "INFO",
+        "log_dir": "outputs/logs",
+        "log_file": "preprocessing_{timestamp}.log",
+        "console_output": True,
+    },
+    "performance": {"batch_size": 64, "num_workers": 4, "prefetch_batches": 2},
 }

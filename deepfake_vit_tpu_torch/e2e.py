@@ -19,9 +19,10 @@ float32; the SCRFD detector family, in its own dtype or as the int8 graph
 the int8 late-stage classifier tail (``use_int8_tail``) with
 ``calibrate_int8``/``calibrate_int8_detector``; the fused early backbone
 stages (``use_fused_backbone``: stem and MBConv blocks through the fused
-kernels, which wins over the int8 tail when both are set, as in the JAX
-graph); ``compute_quality=False``. ``use_s2d_early`` is not ported and
-raises ``NotImplementedError``; the JAX class's ``make_sharded`` has no
+kernels, which wins over the int8 tail and the s2d stages when set, as in
+the JAX graph); the space-to-depth early stages (``use_s2d_early``:
+``models/s2d_early.py``, composing with the int8 tail);
+``compute_quality=False``. The JAX class's ``make_sharded`` has no
 counterpart yet.
 """
 
@@ -38,6 +39,7 @@ from .models.feature_extractor import create_model_from_config
 from .models.fused_backbone import FusedBackboneRunner
 from .models.int8_tail import Int8TailRunner, calibrate_act_scales, default_tail_start
 from .models.layers import init_weights
+from .models.s2d_early import S2DEarlyRunner
 from .models.scrfd_int8 import ScrfdInt8Runner, calibrate_det_act_scales
 from .ops.anchors import STRIDES, all_anchor_centers, decode_boxes, decode_landmarks
 from .ops.image import normalize_imagenet
@@ -77,9 +79,13 @@ class FusedPipeline:
     kernels in bf16 and resumes the stock backbone after them; unlike the
     JAX pipeline, which drops the option silently off the TPU, it holds on
     every device: on a CUDA device the kernels run or the call raises, on
-    ``device="cpu"`` their plain versions run. The runners are built from
-    the networks' weights by ``init_variables`` and ``load_variables``; call
-    ``build_runners`` after changing the weights any other way.
+    ``device="cpu"`` their plain versions run. ``use_s2d_early`` runs the
+    stem and the blocks before the first stride-2 block after block 0 on a
+    space-to-depth layout (``S2DEarlyRunner``), then the int8 tail from its
+    start block if ``use_int8_tail``, else the stock backbone. The runners
+    are built from the networks' weights by ``init_variables`` and
+    ``load_variables``; call ``build_runners`` after changing the weights
+    any other way.
     ``compute_quality=False`` skips quality scoring (quality 1, valid).
     """
 
@@ -115,11 +121,6 @@ class FusedPipeline:
                              f"expected one of {sorted(WARP_KERNELS)}")
         if keep_top_k < 1:
             raise ValueError(f"keep_top_k must be at least 1, got {keep_top_k}")
-        if use_s2d_early:
-            raise NotImplementedError(
-                "use_s2d_early is not ported yet: models/s2d_early.py reaches no TPU kernel and "
-                "is among the modules still missing from the port (ROADMAP.md, Queue A item 6)")
-
         self.device = resolve_device(device)
         self.dtype = dtype
         self.input_size = tuple(detection_input_size)
@@ -137,11 +138,13 @@ class FusedPipeline:
         self.use_int8_tail = use_int8_tail
         self.int8_tail_start = int8_tail_start
         self.int8_act_scales = int8_act_scales
+        self.use_s2d_early = use_s2d_early
         self.use_int8_detector = use_int8_detector
         self.det_act_scales = det_act_scales
         self._tail: Optional[Int8TailRunner] = None
         self._det_int8: Optional[ScrfdInt8Runner] = None
         self._fused: Optional[FusedBackboneRunner] = None
+        self._s2d: Optional[S2DEarlyRunner] = None
         self._windowed = min(self.serving_size) > warp_window
         ratio = self.serving_size[0] // self.input_size[0]
         if (
@@ -212,16 +215,18 @@ class FusedPipeline:
         return default_tail_start(self.model.variant)
 
     def build_runners(self) -> None:
-        """(Re)build the fused-backbone and int8 runners from the networks'
+        """(Re)build the fused-backbone, s2d and int8 runners from the networks'
         current weights and the stored activation scales: BatchNorm folding
         and weight quantization happen here, once, not in ``forward``."""
+        backbone = self.model.feature_extractor.backbone
         if self.use_fused_backbone:
-            self._fused = FusedBackboneRunner(self.model.feature_extractor.backbone,
-                                              image_size=self.output_size[0])
-        if self.use_int8_tail and not self.use_fused_backbone:  # the fused backbone wins
-            self._tail = Int8TailRunner(self.model.feature_extractor.backbone,
-                                        start_block=self._tail_start,
-                                        act_scales=self.int8_act_scales)
+            self._fused = FusedBackboneRunner(backbone, image_size=self.output_size[0])
+        else:  # the fused backbone wins over both
+            if self.use_s2d_early:
+                self._s2d = S2DEarlyRunner(backbone, image_size=self.output_size[0])
+            if self.use_int8_tail:
+                self._tail = Int8TailRunner(backbone, start_block=self._tail_start,
+                                            act_scales=self.int8_act_scales)
         if self.use_int8_detector:
             self._det_int8 = ScrfdInt8Runner(self.detector, act_scales=self.det_act_scales,
                                              dtype=self.dtype)
@@ -230,7 +235,9 @@ class FusedPipeline:
         """Calibrate static int8 activation scales on aligned face crops.
 
         ``faces``: (N, *output_size, 3) RGB [0, 255], representative aligned
-        faces. Stores the scales and rebuilds the tail runner with them.
+        faces. Stores the scales and rebuilds the tail runner with them. With
+        ``use_s2d_early`` the tail's inputs come from the s2d stages, as in
+        serving (the JAX pipeline calibrates on the stock stages either way).
         """
         if not self.use_int8_tail:
             raise ValueError("calibrate_int8 requires use_int8_tail=True")
@@ -241,7 +248,7 @@ class FusedPipeline:
         self.int8_act_scales = calibrate_act_scales(
             self.model.feature_extractor.backbone,
             [norm[i:i + batch_size].to(self.dtype) for i in range(0, norm.shape[0], batch_size)],
-            start_block=self._tail_start,
+            start_block=self._tail_start, early=self._s2d,
         )
         self.build_runners()
         return self.int8_act_scales
@@ -359,12 +366,17 @@ class FusedPipeline:
             x_tail = self._fused(norm).permute(0, 3, 1, 2)
             logits, features = self.model(x_tail, aligned_lms,
                                           backbone_start_block=self._fused.tail_start)
-        elif self.use_int8_tail:
+        elif self.use_int8_tail or self.use_s2d_early:
             backbone = self.model.feature_extractor.backbone
-            split = backbone(norm, stop_block=self._tail.start, dtype=torch.bfloat16)
-            maps = self._tail(split.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-            logits, features = self.model(maps, aligned_lms,
-                                          backbone_start_block=len(backbone.blocks))
+            x, start = norm, 0
+            if self.use_s2d_early:
+                x, start = self._s2d(norm), self._s2d.resume_block
+            if self.use_int8_tail:
+                split = backbone(x, start_block=start, stop_block=self._tail.start,
+                                 dtype=torch.bfloat16)
+                x = self._tail(split.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+                start = len(backbone.blocks)
+            logits, features = self.model(x, aligned_lms, backbone_start_block=start)
         else:
             logits, features = self.model(norm, aligned_lms)
         probs = torch.softmax(logits, dim=-1)

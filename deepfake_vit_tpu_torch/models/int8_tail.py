@@ -26,6 +26,7 @@ from .efficientnet import _B0_STAGES, VARIANT_PARAMS, EfficientNetBackbone, roun
 from .layers import same_pads
 from .quant import (dynamic_scale, folded_hwio, merge_max, quant_w, quantize_s8, scale_tensor,
                     static_scale)
+from .s2d_early import S2DEarlyRunner
 
 
 def default_tail_start(variant: str) -> int:
@@ -146,15 +147,17 @@ class Int8TailRunner:
 
 
 def calibrate_act_scales(backbone: EfficientNetBackbone, face_batches: Iterable[torch.Tensor],
-                         start_block: Optional[int] = None,
-                         margin: float = 1.0) -> List[Dict[str, float]]:
+                         start_block: Optional[int] = None, margin: float = 1.0,
+                         early: Optional[S2DEarlyRunner] = None) -> List[Dict[str, float]]:
     """Post-training calibration of static activation scales.
 
     ``face_batches``: pre-normalized model inputs (B, H, W, 3), the tensors
     the backbone sees in serving. Runs the early blocks in bf16 and the tail
     once per batch, recording the max-abs at every quantize point; returns
     per-tail-block {'exp', 'proj'} scales (max over batches / 127 · margin)
-    for ``Int8TailRunner(act_scales=…)``.
+    for ``Int8TailRunner(act_scales=…)``. ``early``: the s2d stages, which
+    stand in for the stock blocks before their ``resume_block``, as in
+    serving.
     """
     start = default_tail_start(backbone.variant) if start_block is None else start_block
     if start < 1:
@@ -163,7 +166,8 @@ def calibrate_act_scales(backbone: EfficientNetBackbone, face_batches: Iterable[
     maxes: Optional[List[Dict[str, float]]] = None
     for faces in face_batches:
         with torch.inference_mode():
-            split = backbone(faces, stop_block=start, dtype=torch.bfloat16)
+            x, resume = (faces, 0) if early is None else (early(faces), early.resume_block)
+            split = backbone(x, start_block=resume, stop_block=start, dtype=torch.bfloat16)
         _, records = runner.calibrate(split.permute(0, 2, 3, 1))
         maxes = [merge_max(m, r) for m, r in zip(maxes or [None] * len(records), records)]
     if maxes is None:

@@ -48,6 +48,18 @@ def umeyama(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     return torch.cat([sR, t[..., :, None]], dim=-1)  # (..., 2, 3)
 
 
+def affine_from_3pts(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """Exact affine from 3 point pairs (cv2.getAffineTransform semantics).
+
+    src, dst: (..., 3, 2). Returns (..., 2, 3). ``solve_ex`` without its
+    error check: a singular system gives non-finite entries, as in JAX,
+    and no host synchronization on the card."""
+    src = src.float()
+    M = torch.cat([src, torch.ones_like(src[..., :1])], dim=-1)  # (..., 3, 3)
+    A_t, _ = torch.linalg.solve_ex(M, dst.float())  # M @ Aᵀ = dst
+    return A_t.transpose(-1, -2)
+
+
 def invert_affine(A: torch.Tensor) -> torch.Tensor:
     """Invert (..., 2, 3) affine matrices."""
     R = A[..., :2]

@@ -32,7 +32,7 @@ from deepfake_vit_tpu.data.synth_faces import render_scene
 from deepfake_vit_tpu.ops.warp import warp_affine_windowed
 from deepfake_vit_tpu_torch.e2e import FusedPipeline
 from deepfake_vit_tpu_torch.models.bridge import load_flax_variables, to_numpy_tree
-from deepfake_vit_tpu_torch.preprocessing.detector import default_weights_path
+from deepfake_vit_tpu_torch.preprocessing.detector import FaceDetector, default_weights_path
 
 torch.set_num_threads(1)
 
@@ -148,7 +148,9 @@ def test_entry_point_device_and_unported_options(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FusedPipeline(cfg, **COMMON)  # no card and no explicit CPU: never a silent fallback
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FusedPipeline(cfg, device="cpu", use_s2d_early=True, **COMMON)
+        FusedPipeline(cfg, device="cpu", detector_arch="mtcnn", **COMMON)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FaceDetector(refine=True, device="cpu")
     with pytest.raises(ValueError, match="scrfd family"):
         FusedPipeline(cfg, device="cpu", use_int8_detector=True, detector_arch="lite", **COMMON)
     with pytest.raises(ValueError, match="warp_tap_mode"):
@@ -156,7 +158,8 @@ def test_entry_point_device_and_unported_options(monkeypatch):
     for option in (dict(use_int8_tail=True), dict(use_int8_detector=True),
                    dict(warp_fractional=False), dict(use_fused_backbone=True),
                    dict(keep_top_k=3), dict(warp_tap_mode="uw16"), dict(warp_tap_mode="uw"),
-                   dict(warp_tap_mode="int8"), dict(detector_arch="lite")):  # ported: these construct
+                   dict(warp_tap_mode="int8"), dict(detector_arch="lite"),
+                   dict(use_s2d_early=True)):  # ported: these construct
         FusedPipeline(cfg, device="cpu", **{**COMMON, **option})
     multi = FusedPipeline(cfg, device="cpu", keep_top_k=3, detector_arch="lite", **COMMON)
     assert (multi.keep_top_k, multi.nms_threshold, multi.detector_arch) == (3, 0.4, "lite")
@@ -164,6 +167,9 @@ def test_entry_point_device_and_unported_options(monkeypatch):
     assert fused.use_fused_backbone  # never switched off silently, whatever the device
     fused.init_variables(0)
     assert fused._fused is not None and fused._fused.tail_start == 3  # b0 at 64²: 32² and 16² maps
+    s2d = FusedPipeline(cfg, device="cpu", use_s2d_early=True, **COMMON)
+    s2d.init_variables(0)
+    assert s2d._s2d is not None and s2d._s2d.resume_block == 2  # b0: stem, blocks 0 and 1
     pipe = FusedPipeline(cfg, device="cpu", **COMMON)
     with pytest.raises(RuntimeError, match="init_variables"):
         pipe.forward(np.zeros((1, 256, 256, 3), np.uint8))
