@@ -216,26 +216,37 @@ def device_ms(fn, own: str = "", iters: int = 20, warmup: int = 3) -> dict:
     # Now and then a profile comes back without its device records, or
     # without some of them (a kernel counted 19 times in 20 calls): every
     # call launches the same kernels, so a count that is no multiple of the
-    # calls means lost records, and the profile is taken again.
+    # calls means lost records, and the profile is taken again. Late in a
+    # run every try may lose one record of a kernel (seen from the
+    # whole-frame warp phase on); then each kernel's mean over the launches
+    # recorded, times its launches a call, stands in.
+    events = []
     for _ in range(5):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = [ev for ev in prof.key_averages()
-                  if ev.device_type == torch.autograd.DeviceType.CUDA
-                  and ev.self_device_time_total > 0]
-        kernels = {ev.key: {"ms": ev.self_device_time_total / 1e3 / iters,
-                            "launches": ev.count / iters} for ev in events}
-        if kernels and all(ev.count % iters == 0 for ev in events):
+        got = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and ev.self_device_time_total > 0]
+        events = got or events  # a try that saw nothing keeps the one before
+        if got and all(ev.count % iters == 0 for ev in got):
             break
         time.sleep(0.2)
-    else:
+    per_call = {ev.key: round(ev.count / iters) for ev in events}
+    if not events or min(per_call.values()) < 1:
         t = time_ms(fn, iters, warmup=0, repeats=3)
-        print(f"device_ms: the profiler lost device records in five tries; {t['median']:.4f} "
-              f"ms from CUDA events instead (host enqueue included)")
+        print(f"device_ms: the profiler lost device records in five tries (the last saw "
+              f"{sorted((ev.key[:48], ev.count) for ev in events)} in {iters} calls); "
+              f"{t['median']:.4f} ms from CUDA events instead (host enqueue included)")
         return {"ms": t["median"], "call_ms": t["median"], "launches": float("nan"),
                 "kernels": {}, "source": "CUDA events"}
+    lost = sum(per_call[ev.key] * iters - ev.count for ev in events)
+    if lost:
+        print(f"device_ms: the profiler lost {lost} of {sum(per_call.values()) * iters} device "
+              f"records in five tries; the means of the recorded launches stand in")
+    kernels = {ev.key: {"ms": ev.self_device_time_total / 1e3 / ev.count * per_call[ev.key],
+                        "launches": per_call[ev.key]} for ev in events}
     mine = [k["ms"] for name, k in kernels.items() if own in name]
     if not mine:
         fail(f"the profiler saw no device kernel named like {own!r}: {sorted(kernels)}")
