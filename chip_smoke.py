@@ -49,8 +49,7 @@
    for bit against its plain version, with the tiles that read from device
    memory counted (at least one must), timed beside ``F.grid_sample`` and
    its bound; ``PreprocessingPipeline(PREPROCESSING_CONFIG)``'s one-graph
-   batch of 32 frames on the card against the CPU. It runs before the
-   serving profiles: after them ``torch.profiler`` loses device records.
+   batch of 32 frames on the card against the CPU.
 5. Checks each pipeline on the card against the same pipeline on the CPU
    (plain kernel versions, float32) on two frames with drawn faces (three
    faces of different sizes a frame for the multi-face path).
@@ -1498,9 +1497,9 @@ def main() -> None:
 
     # 4. The inference entry point and the preprocessing pipeline: the
     #    whole-frame warp at the predictor's shapes, the predictor on its
-    #    clips, the pipeline's one-graph batch. The warp's device times come
-    #    first: after the predictor's CPU runs, as after the serving
-    #    profiles of phase 7, the profiler lost device records in every try.
+    #    clips, the pipeline's one-graph batch. Before the serving rounds,
+    #    so that the profiles of phase 7 stay last (see device_ms on the
+    #    records the profiler loses late in a run).
     kernels = (wk.crop_frac, wk.crop_frac_mxu, wk.crop_pool, wk.warp_affine_legacy,
                wk.warp_affine_uw, wk.warp_affine_uw16, wk.warp_affine_int8, ik.int8_gemm,
                ik.int8_conv, fs.run_stem, fs.run_block, fm.fused_mbconv)
