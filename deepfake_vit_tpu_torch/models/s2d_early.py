@@ -127,7 +127,7 @@ class S2DEarlyRunner:
                        for i in range(self.n_s1_blocks)]
             self.s2 = self._build_s2_block(getattr(backbone, f"block_{self.n_s1_blocks}"), h)
 
-    # -- builders ---------------------------------------------------------
+    # -- kernel assembly --------------------------------------------------
 
     def _build_stem(self, w3: torch.Tensor, bias: torch.Tensor, taps, ky0: int, ks: int) -> None:
         cin, cout = w3.shape[2], w3.shape[3]
