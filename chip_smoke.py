@@ -50,6 +50,18 @@
    memory counted (at least one must), timed beside ``F.grid_sample`` and
    its bound; ``PreprocessingPipeline(PREPROCESSING_CONFIG)``'s one-graph
    batch of 32 frames on the card against the CPU.
+   Then the training path: the warp kernel at the train step's shape (32
+   ImageNet-normalized 224² faces rotated by up to 5°, bit for bit, timed
+   beside ``F.grid_sample`` and its bound); one AdamW step of the B4 at
+   224², batch 4, on the card against the CPU (float32 without TF32
+   within ``TRAIN_LIMITS``; bf16 printed beside it); 30 steps of the
+   training configuration with augmentation on one batch of 32 drawn
+   faces through ``Trainer``'s step, one warp launch a step and no other
+   kernel, the loss falling; the checkpoint into ``DeepfakePredictor``
+   (its probabilities equal the trainer's eval step's within 1e-3, and it
+   serves frames); ms a step, images/s and peak memory of the full
+   configuration at B = 32 and 64, twice in turns; one profiled step
+   (device busy against the step, device time by class).
 5. Checks each pipeline on the card against the same pipeline on the CPU
    (plain kernel versions, float32) on two frames with drawn faces (three
    faces of different sizes a frame for the multi-face path).
@@ -1316,6 +1328,314 @@ def pipeline_phase(kernels, frames: np.ndarray, dev) -> dict:
             "launches": launches}
 
 
+# The training phase (4b): the B4 of the training configuration at 224².
+TRAIN_SIZE = (224, 224)
+TRAIN_BATCHES = (32, 64)  # the learning run's batch and the configuration's batch
+LEARN_STEPS = 30
+TIMED_STEPS = 6
+# Card vs CPU, one AdamW step of the B4 at batch 4 (dropout, drop-connect and
+# augmentation off): loss and grad_norm relative; gradients as max |Δ| over
+# the largest |g| and as 1 − the cosine of the two gradient vectors;
+# parameters as max |Δ| (Adam's first step moves each element by about lr,
+# so float noise on an analytically zero gradient flips its sign: 2.5 lr
+# bounds that); running statistics as max |Δ| over the largest. float32
+# without TF32 on an H100 80GB HBM3 at 700 W, two runs: loss 3.1e-5 and
+# 1.0e-5, grad_norm 1.5e-5 and 5.0e-5, gradients 1.8e-4 and 2.3e-4 (1 −
+# cosine 1.3e-8 and 1.1e-8), parameters 1.98e-4 and 1.85e-4, statistics
+# 4.6e-6 and 5.0e-6. bf16 against the float32 CPU step: at the seeded
+# init, train-mode BatchNorm over the batch makes the B4 chaotic, and a
+# bf16 rounding at block 0 grows to 30-45 % of the last block's output
+# (2 % in eval mode; a B4 at 96² on the CPU), so the bf16 loss and
+# gradients land elsewhere, by how much depending on the batch (loss 0.09
+# and 0.58 apart, grad_norm 0.69 and 5.3, for two batches on that card);
+# the JAX package's own bf16 step
+# is as far from its float32 one (gradient cosine 0.87 for a b0 at 64² on
+# the CPU, the port's 0.92). Those are printed, not held; the parameters
+# (Adam's bound) and the running statistics are.
+TRAIN_LIMITS = {
+    "float32": {"loss_rel": 1e-4, "grad_norm_rel": 3e-4, "grads_rel": 1e-3, "grads_cos_gap": 1e-6,
+                "params_abs": 2.5e-4, "stats_rel": 5e-5},
+    "bfloat16": {"params_abs": 2.5e-4, "stats_rel": 0.2},
+}
+LEARN_AUG = {"enabled": True, "random_flip": True, "random_rotation": 5, "color_jitter": 0.1}
+# Kernel-name fragments → class for the train step's profile, first match wins.
+TRAIN_KERNEL_CLASSES = (
+    ("warp_affine_legacy (port kernel)", ("warp_tile_kernel",)),
+    ("optimizer (AdamW, clip)", ("multi_tensor", "foreach", "adam")),
+    ("convolution (forward and backward)", ("conv", "xmma", "cudnn", "implicit", "winograd",
+                                            "dgrad", "wgrad", "fprop", "nhwc", "nchw", "gemm",
+                                            "cutlass", "sm90", "sm80")),
+    ("BatchNorm / elementwise / reductions", ("elementwise", "reduce", "vectorized", "mean",
+                                              "sum", "norm", "unrolled", "index", "where")),
+    ("copy / layout", ("copy", "memcpy", "memset", "cat", "transpose", "permute", "fill")),
+)
+
+
+def train_faces(n: int, seed: int):
+    """n ImageNet-normalized 224² drawn faces (float32 NHWC), labels 0/1 in
+    turns with a learnable cue (fake faces carry a white band across their
+    top tenth, which flips and 5° rotations keep), and landmarks at the
+    aligned positions of the reference layout."""
+    from deepfake_vit_tpu_torch.ops.image import normalize_imagenet
+    from deepfake_vit_tpu_torch.preprocessing.aligner import (DEFAULT_REFERENCE_LANDMARKS,
+                                                              _LANDMARK_ORDER)
+
+    rgb = drawn_face_frames(n, TRAIN_SIZE[0], seed).astype(np.float32)
+    labels = np.arange(n, dtype=np.int32) % 2
+    rgb[labels == 1, : TRAIN_SIZE[0] // 10] = 255.0
+    images = normalize_imagenet(torch.from_numpy(rgb / 255.0)).numpy().astype(np.float32)
+    ref = np.asarray([DEFAULT_REFERENCE_LANDMARKS[k] for k in _LANDMARK_ORDER], np.float32)
+    lms = np.broadcast_to(ref * np.asarray(TRAIN_SIZE[::-1], np.float32), (n, 5, 2)).copy()
+    return {"image": images, "label": labels, "landmarks": lms}
+
+
+def train_setup(cfg: dict, dtype, dev, seed: int = 0, clip: float = 1.0):
+    """The model, optimizer and criterion the train CLI builds from ``cfg``."""
+    from deepfake_vit_tpu_torch.models.feature_extractor import create_model_from_config
+    from deepfake_vit_tpu_torch.models.layers import init_weights
+    from deepfake_vit_tpu_torch.training import create_optimizer, make_criterion
+
+    model = init_weights(create_model_from_config(cfg["model"], dtype=dtype), seed).to(dev)
+    opt = create_optimizer(model.parameters(), cfg["training"]["optimizer"], gradient_clip=clip)
+    crit = make_criterion(cfg["training"]["loss"], torch.ones(2))
+    return model, opt, crit
+
+
+def flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v, np.float64)
+    return out
+
+
+def one_train_step(cfg, dtype, dev, batch) -> dict:
+    """One step of the train CLI's step function (no augmentation); the
+    metrics, the clipped gradients, the parameters and statistics after."""
+    from deepfake_vit_tpu_torch.models.bridge import export_flax_variables
+    from deepfake_vit_tpu_torch.training import TrainState, make_train_step
+
+    model, opt, crit = train_setup(cfg, dtype, dev)
+    model.feature_extractor.backbone.drop_connect_rate = 0.0
+    metrics = make_train_step(model, crit, opt)(TrainState(), batch, 0)
+    grads = {n: p.grad.double().cpu().numpy() for n, p in model.named_parameters()}
+    out = {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
+           **{k: flat_tree(v) for k, v in export_flax_variables(model).items()}}
+    del model, opt
+    return out
+
+
+def compare_steps(got: dict, want: dict) -> dict:
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
+    gmax = max(np.abs(g).max() for g in want["grads"].values())
+    g1 = np.concatenate([got["grads"][k].ravel() for k in want["grads"]])
+    g0 = np.concatenate([g.ravel() for g in want["grads"].values()])
+    smax = max(np.abs(s).max() for s in want["batch_stats"].values())
+    return {
+        "loss_rel": rel(got["metrics"]["loss"], want["metrics"]["loss"]),
+        "grad_norm_rel": rel(got["metrics"]["grad_norm"], want["metrics"]["grad_norm"]),
+        "grads_rel": max(np.abs(got["grads"][k] - g).max() for k, g in want["grads"].items())
+        / gmax,
+        "grads_cos_gap": 1.0 - float(g1 @ g0 / (np.linalg.norm(g1) * np.linalg.norm(g0))),
+        "params_abs": max(np.abs(got["params"][k] - p).max() for k, p in want["params"].items()),
+        "stats_rel": max(np.abs(got["batch_stats"][k] - s).max()
+                         for k, s in want["batch_stats"].items()) / smax,
+    }
+
+
+def train_profile(step, batch, step_ms: float) -> dict:
+    """One train step under torch.profiler: device time by class."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = defaultdict(float)
+    for ev in prof.key_averages():
+        # "Optimizer.step#AdamW.step" and the like are ranges that span
+        # kernels counted on their own: not device work of their own.
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not ev.key.startswith(("Optimizer.", "ProfilerStep"))):
+            by_kernel[ev.key] += ev.self_device_time_total
+    busy_us = sum(by_kernel.values())
+    if busy_us <= 0:
+        fail("the profiler saw no device time in the train step")
+    by_class = defaultdict(float)
+    for name, us in by_kernel.items():
+        low = name.lower()
+        by_class[next((label for label, keys in TRAIN_KERNEL_CLASSES
+                       if any(k in low for k in keys)), "other")] += us
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": max(0.0, 1.0 - busy_us / 1e3 / step_ms),
+            "device_ms_by_class": {k: v / 1e3 for k, v in
+                                   sorted(by_class.items(), key=lambda kv: -kv[1])},
+            "top_kernels_ms": [(k, v / 1e3) for k, v in
+                               sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]]}
+
+
+def training_phase(kernels, wk, card: str, dev) -> dict:
+    """The training path on the card: the warp kernel at the train step's
+    shape; one step card vs CPU in float32 and in bf16; LEARN_STEPS steps
+    of the training configuration (bf16, CombinedLoss, AdamW + clip 1.0,
+    augmentation on; dropout and drop-connect off) on one batch of 32
+    faces with every kernel's launches counted (one warp a step) and the
+    loss falling; its checkpoint into DeepfakePredictor; ms a step,
+    images/s and peak memory of the full configuration at B = 32 and 64,
+    twice in turns; one profiled step."""
+    import copy
+    import tempfile
+
+    from deepfake_vit_tpu_torch.configs import PREPROCESSING_CONFIG, TRAINING_CONFIG
+    from deepfake_vit_tpu_torch.inference import DeepfakePredictor
+    from deepfake_vit_tpu_torch.ops.augment import draw_rotation, make_augment_fn
+    from deepfake_vit_tpu_torch.ops.augment import rotation_matrices
+    from deepfake_vit_tpu_torch.ops.umeyama import invert_affine
+    from deepfake_vit_tpu_torch.training import Trainer, create_scheduler, make_eval_step
+
+    res = {}
+    # The kernel at the train step's shape: 32 normalized faces, ±5° rotations.
+    faces = torch.from_numpy(train_faces(32, 21)["image"]).to(dev)
+    theta = draw_rotation(32, 5.0, torch.Generator(device=dev).manual_seed(0), dev)
+    A_inv = invert_affine(rotation_matrices(theta, TRAIN_SIZE))
+    row = check_warp("warp_affine_legacy", wk.warp_affine_legacy, wk.warp_affine_legacy_plain,
+                     faces.to(torch.bfloat16), A_inv, TRAIN_SIZE)
+    row.pop("out")
+    row["shape"] = "train step: 32 normalized 224² faces, ±5° rotation -> 224²"
+    res["warp_row"] = row
+    del faces
+
+    # Card vs CPU: one step, float32 without TF32 and bf16.
+    cfg = copy.deepcopy(TRAINING_CONFIG)
+    cfg["model"]["feature_extractor"]["dropout_rate"] = 0.0
+    cfg["model"]["classifier"]["dropout_rate"] = 0.0
+    small = train_faces(4, 22)
+    t0 = time.time()
+    want = one_train_step(cfg, torch.float32, "cpu", small)
+    cpu_s = time.time() - t0
+    errs = {}
+    with tf32_off():
+        errs["float32"] = compare_steps(one_train_step(cfg, torch.float32, dev, small), want)
+    errs["bfloat16"] = compare_steps(one_train_step(cfg, torch.bfloat16, dev, small), want)
+    torch.cuda.empty_cache()
+    for name, err in errs.items():
+        print(f"train step, B4 at 224², batch 4, card ({name}) vs CPU (float32, {cpu_s:.1f} s): "
+              f"{ {k: float(f'{v:.3g}') for k, v in err.items()} } (limits {TRAIN_LIMITS[name]})")
+    for name, err in errs.items():
+        bad = {k: v for k, v in err.items() if not math.isfinite(v) or (
+            k in TRAIN_LIMITS[name] and not v <= TRAIN_LIMITS[name][k])}
+        if bad:
+            fail(f"the train step on the card ({name}) disagrees with the CPU: {bad}")
+    res["card_vs_cpu"] = errs
+
+    # It learns: the training configuration with augmentation on, dropout
+    # and drop-connect off (their masks' noise hides a 30-step trend: a b0
+    # at 64² on the CPU shows none in 100 steps with them), through the
+    # Trainer's step.
+    cfg = copy.deepcopy(TRAINING_CONFIG)
+    cfg["data"]["augmentation"] = dict(LEARN_AUG)
+    cfg["model"]["feature_extractor"]["dropout_rate"] = 0.0
+    cfg["model"]["classifier"]["dropout_rate"] = 0.0
+
+    def trainer_for(cfg, seed):  # the train CLI's objects, clip 1.0
+        model, opt, crit = train_setup(cfg, torch.bfloat16, dev, seed=seed)
+        lr = cfg["training"]["optimizer"]["lr"]
+        return Trainer(model, opt, crit, [], [], create_scheduler(cfg["training"]["scheduler"], lr),
+                       augment_fn=make_augment_fn(cfg["data"]["augmentation"]), seed=5)
+
+    trainer = trainer_for(cfg, 1)
+    trainer.model.feature_extractor.backbone.drop_connect_rate = 0.0
+    batch = train_faces(BATCH, 23)
+    for k in kernels:
+        k.launches = 0
+    losses = [float(trainer.train_step(trainer.state, batch, trainer.seed)["loss"])
+              for _ in range(LEARN_STEPS)]
+    launches = {k.__name__: k.launches for k in kernels}
+    expected = {**dict.fromkeys(KERNEL_NAMES, 0), "warp_affine_legacy": LEARN_STEPS}
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    print(f"[{card}] training, B4 at 224², batch {BATCH}, bf16, CombinedLoss, AdamW + clip, "
+          f"augmentation on: loss over {LEARN_STEPS} steps {[round(v, 4) for v in losses]}; "
+          f"mean of the first 5 {first:.4f}, of the last 5 {last:.4f}; launches {launches}")
+    if launches != expected:
+        fail(f"training: launches {launches}, expected {expected}")
+    if not (all(math.isfinite(v) for v in losses) and last < first):
+        fail(f"training: the loss did not fall ({first} -> {last})")
+    res.update(learn_losses=losses, learn_launches=launches)
+
+    # The checkpoint into the predictor.
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer.config["save_dir"] = tmp
+        path = trainer.save_checkpoint(0, is_best=True)
+        pred = DeepfakePredictor({"model": cfg["model"]}, PREPROCESSING_CONFIG,
+                                 checkpoint_path=str(Path(tmp) / "best_model.ckpt"), device=dev)
+        ckpt_mb = path.stat().st_size / 2 ** 20
+    ev = make_eval_step(trainer.model, trainer.criterion)(batch)
+    x = torch.from_numpy(batch["image"]).to(dev)
+    lms = torch.from_numpy(batch["landmarks"]).to(dev)
+    fake, _ = pred._predict(x, lms, torch.ones(BATCH, device=dev))
+    pred_err = (fake.float() - ev["probs"][:, 1].float()).abs().max().item()
+    served = pred.predict_frames(list(clip_frames(PREDICTOR_CLIPS["640x640"])[:8]))
+    print(f"checkpoint ({ckpt_mb:.1f} MiB) -> DeepfakePredictor on the card: fake probabilities "
+          f"of the {BATCH} training faces within {pred_err:.2e} of the trainer's eval step "
+          f"(limit 1e-3); 8 frames of the 640² clip served: {served['num_faces']} faces, "
+          f"fake_prob {served['fake_prob']:.4f}")
+    if not pred_err <= 1e-3:
+        fail(f"the predictor's probabilities differ from the trainer's by {pred_err}")
+    if served["num_faces"] < 1 or not math.isfinite(served["fake_prob"]):
+        fail(f"the predictor did not serve the frames: {served}")
+    res.update(predictor_prob_err=pred_err, checkpoint_mib=ckpt_mb)
+    del pred, trainer
+    torch.cuda.empty_cache()
+
+    # ms a step, images/s and peak memory at B = 32 and 64, twice in turns:
+    # the full configuration (dropout 0.4, drop-connect 0.2, augmentation).
+    cfg = copy.deepcopy(TRAINING_CONFIG)
+    cfg["data"]["augmentation"] = dict(LEARN_AUG)
+    trainer = trainer_for(cfg, 2)
+    batches = {b: train_faces(b, 30 + b) for b in TRAIN_BATCHES}
+
+    def step(b):
+        return trainer.train_step(trainer.state, b, trainer.seed)
+
+    rounds = []
+    for rnd in range(2):
+        for bsz in TRAIN_BATCHES:
+            step(batches[bsz])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            for _ in range(TIMED_STEPS):
+                step(batches[bsz])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if wk.warp_affine_legacy.launches != TIMED_STEPS:
+                fail(f"training, B = {bsz}: {wk.warp_affine_legacy.launches} warp launches in "
+                     f"{TIMED_STEPS} steps")
+            rounds.append({"round": rnd, "batch": bsz, "ms_per_step": ms,
+                           "images_per_s": bsz * 1e3 / ms, "peak_memory_gib": peak})
+            print(f"[{card}] training round {rnd}, B = {bsz}: {ms:.2f} ms a step, "
+                  f"{bsz * 1e3 / ms:.1f} images/s ({TIMED_STEPS} steps after one warm-up), "
+                  f"peak memory {peak:.2f} GiB")
+    res["rounds"] = rounds
+    step_ms = statistics.median(r["ms_per_step"] for r in rounds if r["batch"] == BATCH)
+    prof = train_profile(lambda b: step(b), batches[BATCH], step_ms)
+    print(f"    profiled step, B = {BATCH}: device busy {prof['device_busy_ms']:.2f} ms of "
+          f"{step_ms:.2f} ms a step, idle share {prof['device_idle_share']:.3f}")
+    for label, ms in prof["device_ms_by_class"].items():
+        print(f"    {label:38s} {ms:8.3f} ms")
+    for name, ms in prof["top_kernels_ms"][:6]:
+        print(f"    {ms:8.3f} ms  {name[:100]}")
+    res["profile"] = prof
+    del trainer
+    torch.cuda.empty_cache()
+    return res
+
+
 def card_vs_cpu(path: str, frames: np.ndarray, limits: dict) -> dict:
     """The pipeline on the card against the same pipeline on the CPU (plain
     kernel versions), float32 without TF32; path A hands the card's
@@ -1509,6 +1829,7 @@ def main() -> None:
     predictor = predictor_phase(kernels, dev)
     pipeline = pipeline_phase(kernels, clip_frames(PREDICTOR_CLIPS["640x640"]), dev)
     torch.cuda.empty_cache()
+    training = training_phase(kernels, wk, card, dev)
 
     # 5. Each pipeline on the card vs on the CPU (plain kernel versions),
     #    float32. Float convolutions differ in the last place between cuDNN
@@ -1636,8 +1957,8 @@ def main() -> None:
         row("crop_frac_mxu", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:564",
             e_launches["crop_frac_mxu"], mxu_row, construction="mxu"),
         row("warp_affine_legacy", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:101",
-            a_launches["warp_affine_legacy"], legacy_row, [legacy_row, *whole_rows],
-            construction="legacy"),
+            a_launches["warp_affine_legacy"], legacy_row,
+            [legacy_row, *whole_rows, training["warp_row"]], construction="legacy"),
         row("warp_affine_uw", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:101",
             uw_launches["warp_affine_uw"], rank1_rows["warp_affine_uw"], construction="uw"),
         row("warp_affine_uw16", "warp.cu", "deepfake_vit_tpu/ops/pallas/warp_kernel.py:101",
@@ -1671,6 +1992,7 @@ def main() -> None:
              "device_launches_per_fused_block": fs.LAUNCHES_PER_BLOCK,
              "s2d_context": s2d_context, "predictor": predictor,
              "whole_frame_warp": whole_rows, "preprocessing_pipeline": pipeline,
+             "training": training,
              "torch": torch.__version__, "cuda": torch.version.cuda}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,9 +1,12 @@
-"""The headline model configuration and the preprocessing configuration as
-Python dicts.
+"""The headline model configuration, the training configuration and the
+preprocessing configuration as Python dicts.
 
 ``MODEL_CONFIG`` is the ``model`` block of
 ``deepfake_vit_tpu/configs/model_config.yaml`` (EfficientNet-B4 + hybrid
-attention + [512, 128, 32] head); ``PREPROCESSING_CONFIG`` is the whole of
+attention + [512, 128, 32] head); ``TRAINING_CONFIG`` is that whole file
+(the model block, data, augmentation, training, validation, early
+stopping, checkpoint, logging, hardware and seed), the default of the
+port's train and evaluate CLIs; ``PREPROCESSING_CONFIG`` is the whole of
 ``deepfake_vit_tpu/configs/preprocessing_config.yaml`` (its
 ``detection.device`` key is data the port does not read). They are kept
 here so that the port's entry points need no YAML reader; tests hold each
@@ -32,6 +35,44 @@ MODEL_CONFIG = {
             "num_classes": 2,
         },
     }
+}
+
+TRAINING_CONFIG = {
+    "model": MODEL_CONFIG["model"],
+    "data": {
+        "processed_dir": "data/processed",
+        "batch_size": 64,
+        "num_workers": 4,
+        "use_landmarks": True,
+        "augmentation": {"enabled": False, "random_flip": True, "random_rotation": 5,
+                         "color_jitter": 0.1},
+    },
+    "training": {
+        "num_epochs": 100,
+        "gradient_clip": 1.0,
+        "accumulation_steps": 1,
+        "use_amp": True,
+        "remat": False,
+        "optimizer": {"type": "AdamW", "lr": 0.0001, "weight_decay": 0.0001,
+                      "betas": [0.9, 0.999], "momentum": 0.9, "nesterov": True},
+        "scheduler": {"type": "CosineAnnealingWarmRestarts", "step_size": 30, "gamma": 0.1,
+                      "T_max": 50, "eta_min": 0.000001, "mode": "min", "factor": 0.5,
+                      "patience": 5, "min_lr": 0.000001, "T_0": 10, "T_mult": 2,
+                      "eta_min_restart": 0.000001},
+        "loss": {"type": "CombinedLoss", "weights": {"ce": 1.0, "focal": 0.5, "contrastive": 0.2},
+                 "focal_gamma": 2.0, "smoothing": 0.1, "class_weights": None},
+    },
+    "validation": {"eval_freq": 1, "save_freq": 5, "print_freq": 10},
+    "early_stopping": {"patience": 15, "min_delta": 0.001},
+    "checkpoint": {"save_dir": "checkpoints", "max_keep": 5, "save_best_only": False},
+    "logging": {"log_dir": "runs", "log_freq": 10},
+    "hardware": {"device": "tpu", "mesh_axes": ["data"], "mesh_shape": None},
+    "seed": 42,
+    "experiment": {
+        "name": "deepfake_detection_efficientnet_b4_tpu",
+        "tags": ["efficientnet", "landmark_attention", "combined_loss", "tpu"],
+        "notes": "TPU-native EfficientNet-B4 + hybrid attention deepfake detector",
+    },
 }
 
 PREPROCESSING_CONFIG = {

@@ -38,7 +38,7 @@ from .models.bridge import load_flax_variables
 from .models.feature_extractor import create_model_from_config
 from .models.fused_backbone import FusedBackboneRunner
 from .models.int8_tail import Int8TailRunner, calibrate_act_scales, default_tail_start
-from .models.layers import init_weights
+from .models.layers import ensure_eval, init_weights
 from .models.s2d_early import S2DEarlyRunner
 from .models.scrfd_int8 import ScrfdInt8Runner, calibrate_det_act_scales
 from .ops.anchors import STRIDES, all_anchor_centers, decode_boxes, decode_landmarks
@@ -243,6 +243,7 @@ class FusedPipeline:
             raise ValueError("calibrate_int8 requires use_int8_tail=True")
         if not self._initialized:
             raise RuntimeError("call init_variables or load_variables before calibrate_int8")
+        ensure_eval(self.model)
         faces = torch.as_tensor(faces).to(self.device, torch.float32)
         norm = normalize_imagenet(faces / 255.0)
         self.int8_act_scales = calibrate_act_scales(
@@ -266,6 +267,7 @@ class FusedPipeline:
         if not self._initialized:
             raise RuntimeError("call init_variables or load_variables before "
                                "calibrate_int8_detector")
+        ensure_eval(self.detector)
         x = self._canvas(torch.as_tensor(frames).to(self.device).to(self.dtype))
         self.det_act_scales = calibrate_det_act_scales(
             self.detector, [x[i:i + batch_size] for i in range(0, x.shape[0], batch_size)])
@@ -286,6 +288,7 @@ class FusedPipeline:
         numpy or tensor. Returns per-frame tensors on the pipeline's device."""
         if not self._initialized:
             raise RuntimeError("call init_variables or load_variables before forward")
+        ensure_eval(self.detector, self.model)
         return self._graph(torch.as_tensor(frames).to(self.device))
 
     def _graph(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:

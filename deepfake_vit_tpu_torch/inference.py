@@ -23,7 +23,7 @@ import torch
 from .device import resolve_device
 from .models.bridge import load_flax_variables
 from .models.feature_extractor import create_model_from_config
-from .models.layers import init_weights
+from .models.layers import ensure_eval, init_weights
 from .ops.image import normalize_imagenet
 from .preprocessing.aligner import FaceAligner
 from .preprocessing.detector import create_face_detector
@@ -35,10 +35,10 @@ PACKAGED_FORMAT = "dfv-classifier-v1"
 class DeepfakePredictor:
     """Classifier and preprocessing of the predict CLI on one device.
 
-    ``checkpoint_path``: a checkpoint written by the JAX package's
-    ``utils/io_utils.py::save_checkpoint`` (a flax msgpack dict; its
-    ``params`` and ``batch_stats`` are loaded, anything else such as
-    ``opt_state`` is ignored). Without one the classifier keeps its seeded
+    ``checkpoint_path``: a checkpoint written by either package's
+    ``save_checkpoint`` (a flax msgpack dict; its ``params`` and
+    ``batch_stats`` are loaded, anything else such as ``opt_state`` is
+    ignored). The networks run in eval mode (``ensure_eval``). Without one the classifier keeps its seeded
     initialization (seed 0).
     """
 
@@ -103,6 +103,7 @@ class DeepfakePredictor:
         """Normalized faces (N, H, W, 3), aligned landmarks (N, 5, 2) and a
         validity mask (N,) on the device → (fake probability a face, their
         masked mean)."""
+        ensure_eval(self.model)
         logits, _ = self.model(images, landmarks)
         fake = torch.softmax(logits, dim=-1)[:, 1]
         return fake, (fake * mask).sum() / mask.sum().clamp_min(1.0)

@@ -1,4 +1,4 @@
-"""Networks of the serving path (PyTorch counterparts of
+"""Networks of the serving and training paths (PyTorch counterparts of
 ``deepfake_vit_tpu.models``)."""
 
 from .feature_extractor import DeepfakeDetectionModel, create_model_from_config

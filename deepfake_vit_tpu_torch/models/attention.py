@@ -19,7 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.gaussian import landmark_gaussian_map
-from .layers import Conv, Dense, _as_tensor, _copy_checked
+from .layers import Conv, Dense, _as_tensor, _copy_checked, _numpy
 
 
 class LandmarkAttention(nn.Module):
@@ -40,6 +40,9 @@ class LandmarkAttention(nn.Module):
     def load_flax(self, params: Dict[str, Any], stats: Dict[str, Any]) -> None:
         _copy_checked(self.attention_weights, _as_tensor(params["attention_weights"]),
                       "LandmarkAttention.attention_weights")
+
+    def export_flax(self):
+        return {"attention_weights": _numpy(self.attention_weights)}, {}
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         nn.init.ones_(self.attention_weights)

@@ -11,6 +11,9 @@ to (out, in), BN scale/bias/mean/var to parameters and buffers.
 
 Loading is strict: every leaf of the tree must land in the module and
 every parameter and buffer of the module must be set.
+``export_flax_variables`` is the inverse walk: each leaf layer writes its
+own subtree back (``export_flax``), with the same strictness — every
+parameter and buffer of the module must be written.
 """
 
 from __future__ import annotations
@@ -62,6 +65,36 @@ def load_flax_variables(module: nn.Module, variables: Mapping[str, Any]) -> nn.M
     return module
 
 
+def _export(module: nn.Module, path: str, written: set):
+    if hasattr(module, "export_flax"):
+        params, stats = module.export_flax()
+        written.update(f"{path}{k}" for k, _ in module.named_parameters(recurse=False))
+        written.update(f"{path}{k}" for k, _ in module.named_buffers(recurse=False))
+        return params, stats
+    params: dict = {}
+    stats: dict = {}
+    for key, child in module.named_children():
+        p, s = _export(child, f"{path}{key}.", written)
+        if p:
+            params[key] = p
+        if s:
+            stats[key] = s
+    return params, stats
+
+
+def export_flax_variables(module: nn.Module) -> dict:
+    """``module``'s variables as a flax tree ``{"params", "batch_stats"}``
+    of nested dicts with numpy float32 leaves (the layout
+    ``load_flax_variables`` reads)."""
+    written: set = set()
+    params, stats = _export(module, "", written)
+    expected = {k for k, _ in module.named_parameters()} | {k for k, _ in module.named_buffers()}
+    missing = expected - written
+    if missing:
+        raise KeyError(f"{len(missing)} tensors have no flax layer, e.g. {sorted(missing)[:5]}")
+    return {"params": params, "batch_stats": stats}
+
+
 def to_numpy_tree(tree: Any) -> Any:
     """Nested mapping of array-likes → nested dict of numpy arrays."""
     import numpy as np
@@ -71,5 +104,5 @@ def to_numpy_tree(tree: Any) -> Any:
     return np.asarray(tree)
 
 
-__all__ = ["load_flax_variables", "to_numpy_tree"]
+__all__ = ["export_flax_variables", "load_flax_variables", "to_numpy_tree"]
 

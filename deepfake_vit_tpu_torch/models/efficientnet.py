@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BatchNorm, Conv
+from .layers import BatchNorm, Conv, drop_connect, dropout
 
 # Base (B0) stages: (num_repeat, kernel, stride, expand_ratio, in, out, se_ratio)
 _B0_STAGES = (
@@ -41,6 +41,7 @@ VARIANT_PARAMS = {
     "b7": (2.0, 3.1, 600, 0.5),
 }
 
+_BN_MOMENTUM = 0.99
 _BN_EPS = 1e-3
 
 
@@ -85,24 +86,26 @@ class MBConvBlock(nn.Module):
     """Mobile inverted bottleneck with squeeze-excitation, NCHW."""
 
     def __init__(self, kernel: int, stride: int, expand_ratio: int, in_filters: int,
-                 out_filters: int, se_ratio: float):
+                 out_filters: int, se_ratio: float, drop_rate: float = 0.0,
+                 freeze_bn: bool = False):
         super().__init__()
-        self.expand_ratio, self.se_ratio = expand_ratio, se_ratio
+        self.expand_ratio, self.se_ratio, self.drop_rate = expand_ratio, se_ratio, drop_rate
         self.residual = stride == 1 and in_filters == out_filters
         expanded = in_filters * expand_ratio
+        bn = dict(eps=_BN_EPS, momentum=_BN_MOMENTUM, frozen=freeze_bn)
         if expand_ratio != 1:
             self.expand_conv = Conv(in_filters, expanded, 1)
-            self.bn0 = BatchNorm(expanded, _BN_EPS)
+            self.bn0 = BatchNorm(expanded, **bn)
         self.depthwise_conv = Conv(expanded, expanded, kernel, stride, groups=expanded)
-        self.bn1 = BatchNorm(expanded, _BN_EPS)
+        self.bn1 = BatchNorm(expanded, **bn)
         if se_ratio > 0:
             se_filters = max(1, int(in_filters * se_ratio))
             self.se_reduce = Conv(expanded, se_filters, 1, bias=True)
             self.se_expand = Conv(se_filters, expanded, 1, bias=True)
         self.project_conv = Conv(expanded, out_filters, 1)
-        self.bn2 = BatchNorm(out_filters, _BN_EPS)
+        self.bn2 = BatchNorm(out_filters, **bn)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         inputs = x
         if self.expand_ratio != 1:
             x = F.silu(self.bn0(self.expand_conv(x)))
@@ -113,6 +116,8 @@ class MBConvBlock(nn.Module):
             x = x * torch.sigmoid(se)
         x = self.bn2(self.project_conv(x))
         if self.residual:
+            if self.training and self.drop_rate > 0:
+                x = drop_connect(x, self.drop_rate, generator)
             x = x + inputs
         return x
 
@@ -121,41 +126,109 @@ class EfficientNetBackbone(nn.Module):
     """EfficientNet feature backbone.
 
     ``forward(x)`` takes (B, H, W, 3) normalized images (NHWC) and returns
-    the final (B, C, h, w) feature map (NCHW). ``start_block > 0`` resumes
-    mid-network: x is then the NCHW input activation of flat block
-    ``start_block`` (``len(blocks)``: only the head conv runs).
-    ``stop_block`` stops early and returns the NCHW input activation of
-    flat block ``stop_block``. ``dtype`` overrides the module's activation
-    dtype for this call.
+    the final (B, C, h, w) feature map (NCHW), or with
+    ``return_maps=False`` its mean over h, w through dropout
+    (``dropout_rate``). ``start_block > 0`` resumes mid-network: x is then
+    the NCHW input activation of flat block ``start_block``
+    (``len(blocks)``: only the head conv runs). ``stop_block`` stops early
+    and returns the NCHW input activation of flat block ``stop_block``.
+    ``dtype`` overrides the module's activation dtype for this call;
+    ``generator`` feeds the train-mode masks. Block ``idx`` drops its
+    residual branch at ``drop_connect_rate · idx / len(blocks)`` (setting
+    ``drop_connect_rate`` sets every block's rate).
     """
 
-    def __init__(self, variant: str = "b4", dtype: torch.dtype = torch.float32):
+    def __init__(self, variant: str = "b4", dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.4, drop_connect_rate: float = 0.2,
+                 freeze_bn: bool = False):
         super().__init__()
-        self.variant, self.dtype = variant, dtype
+        self.variant, self.dtype, self.dropout_rate = variant, dtype, dropout_rate
+        bn = dict(eps=_BN_EPS, momentum=_BN_MOMENTUM, frozen=freeze_bn)
         width = VARIANT_PARAMS[variant][0]
         stem = round_filters(32, width)
         self.stem_conv = Conv(3, stem, 3, 2)
-        self.stem_bn = BatchNorm(stem, _BN_EPS)
+        self.stem_bn = BatchNorm(stem, **bn)
         self.blocks = block_args(variant)
         for idx, args in enumerate(self.blocks):
-            self.add_module(f"block_{idx}", MBConvBlock(**args))
+            self.add_module(f"block_{idx}", MBConvBlock(**args, freeze_bn=freeze_bn))
         head = feature_dim(variant)
         self.head_conv = Conv(self.blocks[-1]["out_filters"], head, 1)
-        self.head_bn = BatchNorm(head, _BN_EPS)
+        self.head_bn = BatchNorm(head, **bn)
+        self.drop_connect_rate = drop_connect_rate
+
+    @property
+    def drop_connect_rate(self) -> float:
+        return self._drop_connect_rate
+
+    @drop_connect_rate.setter
+    def drop_connect_rate(self, rate: float) -> None:
+        self._drop_connect_rate = rate
+        for idx in range(len(self.blocks)):
+            getattr(self, f"block_{idx}").drop_rate = rate * idx / len(self.blocks)
 
     @property
     def feature_dim(self) -> int:
         return feature_dim(self.variant)
 
     def forward(self, x: torch.Tensor, start_block: int = 0, stop_block: Optional[int] = None,
-                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                dtype: Optional[torch.dtype] = None, generator: Optional[torch.Generator] = None,
+                return_maps: bool = True) -> torch.Tensor:
         x = x.to(dtype or self.dtype)
         if start_block == 0:
             x = x.permute(0, 3, 1, 2)
             x = F.silu(self.stem_bn(self.stem_conv(x)))
         last = len(self.blocks) if stop_block is None else stop_block
         for idx in range(start_block, last):
-            x = getattr(self, f"block_{idx}")(x)
+            x = getattr(self, f"block_{idx}")(x, generator)
         if stop_block is not None:
             return x
-        return F.silu(self.head_bn(self.head_conv(x)))
+        maps = F.silu(self.head_bn(self.head_conv(x)))
+        if return_maps:
+            return maps
+        pooled = maps.mean(dim=(2, 3))
+        return dropout(pooled, self.dropout_rate, generator) if self.training else pooled
+
+
+def _top(name: str) -> str:
+    return name.split(".", 1)[0]
+
+
+def param_group_labels(module: nn.Module) -> Dict[str, str]:
+    """Parameter name → 'stem' / 'blocks' / 'head' for discriminative
+    learning rates, from the name's first component as the JAX function
+    reads a flax tree's top key: a backbone's ``stem_*`` and ``block_*``
+    get their groups, everything else (every parameter of a
+    ``DeepfakeDetectionModel``, whose top keys are ``feature_extractor``
+    and the head) is 'head'."""
+    def label(name: str) -> str:
+        top = _top(name)
+        if top.startswith("stem"):
+            return "stem"
+        if top.startswith("block_"):
+            return "blocks"
+        return "head"
+
+    return {name: label(name) for name, _ in module.named_parameters()}
+
+
+def frozen_stage_mask(module: nn.Module, freeze_stages: int, variant: str = "b4") -> Dict[str, bool]:
+    """Parameter name → True where the parameter trains when the first
+    ``freeze_stages`` EfficientNet stages are frozen (0 = none, 7 = every
+    block); the stem freezes whenever any stage does. Read from the name's
+    first component, as :func:`param_group_labels` does."""
+    _, depth, _, _ = VARIANT_PARAMS[variant]
+    stage_ends, total = [], 0
+    for repeat, *_ in _B0_STAGES:
+        total += round_repeats(repeat, depth)
+        stage_ends.append(total)
+    frozen_upto = stage_ends[freeze_stages - 1] if freeze_stages > 0 else 0
+
+    def trainable(name: str) -> bool:
+        top = _top(name)
+        if top.startswith("stem"):
+            return freeze_stages == 0
+        if top.startswith("block_"):
+            return int(top.split("_")[1]) >= frozen_upto
+        return True
+
+    return {name: trainable(name) for name, _ in module.named_parameters()}

@@ -1,2 +1,2 @@
-"""Batched tensor ops of the serving path (PyTorch counterparts of
-``deepfake_vit_tpu.ops``)."""
+"""Batched tensor ops of the serving and training paths (PyTorch
+counterparts of ``deepfake_vit_tpu.ops``)."""

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..models.bridge import load_flax_variables, to_numpy_tree
-from ..models.layers import init_weights
+from ..models.layers import ensure_eval, init_weights
 from ..models.lite_detector import LiteDetector
 from ..models.scrfd import ScrfdDetector
 from ..ops.anchors import STRIDES, all_anchor_centers, decode_boxes, decode_landmarks
@@ -134,6 +134,7 @@ class FaceDetector:
         """images: (B, H, W, 3) uint8/float raw RGB [0, 255] on the device.
         Returns the padded detections: boxes (B, K, 4), scores (B, K) (0
         where invalid), landmarks (B, K, 5, 2), valid (B, K)."""
+        ensure_eval(self.model)
         x = (images.float() - 127.5) / 128.0
         outs = self.model(x)
         scores = torch.cat([torch.sigmoid(outs[s]["scores"]) for s in STRIDES], dim=1)

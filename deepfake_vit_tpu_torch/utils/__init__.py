@@ -1,1 +1,1 @@
-"""Host-side utilities of the port (weights I/O)."""
+"""Host-side utilities of the port (weights, checkpoint and config I/O)."""

@@ -567,3 +567,68 @@ def test_kernels_reject_wrong_inputs(dev):
     with pytest.raises(ValueError):
         fs.run_stem(torch.zeros((1, 8, 8, 3), dtype=torch.bfloat16, device=dev),
                     [torch.zeros((48, 27), dtype=torch.bfloat16), torch.zeros(48, device=dev)])
+
+
+def test_warp_at_the_training_shape_matches_plain(dev):
+    """The train step's rotation: 32 ImageNet-normalized 224² faces
+    (negative values included) rotated by up to 5° about their centers,
+    one launch, bit for bit against the plain version."""
+    from deepfake_vit_tpu_torch.ops.augment import draw_rotation, rotate, rotation_matrices
+    from deepfake_vit_tpu_torch.ops.umeyama import invert_affine
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    images = torch.randn((32, 224, 224, 3), generator=g, device=dev) * 1.2
+    theta = draw_rotation(32, 5.0, g, dev)
+    lms = torch.rand((32, 5, 2), generator=g, device=dev) * 223
+    wk.warp_affine_legacy.launches = 0
+    out, _ = rotate(images, lms, theta)
+    assert wk.warp_affine_legacy.launches == 1
+    coeffs = invert_affine(rotation_matrices(theta, (224, 224))).reshape(32, 6).contiguous()
+    want = wk.warp_affine_legacy_plain(images.to(torch.bfloat16), coeffs, (224, 224))
+    assert (want < 0).any()
+    assert torch.equal(out, want)
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One AdamW step of a b0 at 64², float32 without TF32, dropout and
+    drop-connect off, augmentation off: loss and grad_norm within 1e-4
+    relative, the running statistics within 1e-4, every parameter within
+    2.5 lr (Adam's first step moves each element by about lr, so float
+    noise on a gradient that is analytically zero may flip its sign)."""
+    from deepfake_vit_tpu_torch.models.bridge import export_flax_variables
+    from deepfake_vit_tpu_torch.models.feature_extractor import DeepfakeDetectionModel
+    from deepfake_vit_tpu_torch.training import TrainState, create_optimizer, make_criterion
+    from deepfake_vit_tpu_torch.training import make_train_step
+
+    rng = np.random.default_rng(0)
+    batch = {"image": rng.normal(0, 1, (4, 64, 64, 3)).astype(np.float32),
+             "label": np.array([0, 1, 1, 0], np.int32),
+             "landmarks": rng.uniform(8, 56, (4, 5, 2)).astype(np.float32)}
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {}
+        for where in ("cpu", "cuda"):
+            model = init_weights(DeepfakeDetectionModel(
+                variant="b0", classifier_hidden_dims=(16,), dropout_rate=0.0,
+                feature_dropout_rate=0.0), 0).to(where)
+            model.feature_extractor.backbone.drop_connect_rate = 0.0
+            opt = create_optimizer(model.parameters(), {"type": "AdamW", "lr": 1e-4}, 1.0)
+            step = make_train_step(model, make_criterion({"type": "CombinedLoss"}), opt)
+            m = {k: float(v) for k, v in step(TrainState(), batch, 0).items()}
+            runs[where] = m, export_flax_variables(model)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    (mc, vc), (mg, vg) = runs["cpu"], runs["cuda"]
+    for k in ("loss", "grad_norm"):
+        assert abs(mg[k] - mc[k]) <= 1e-4 * abs(mc[k]), k
+
+    def flat(t, out, p=""):
+        for k, v in t.items():
+            flat(v, out, f"{p}/{k}") if isinstance(v, dict) else out.__setitem__(f"{p}/{k}", v)
+        return out
+
+    params_c, params_g = flat(vc["params"], {}), flat(vg["params"], {})
+    assert max(np.abs(params_g[k] - params_c[k]).max() for k in params_c) <= 2.5e-4
+    stats_c, stats_g = flat(vc["batch_stats"], {}), flat(vg["batch_stats"], {})
+    assert max(np.abs(stats_g[k] - stats_c[k]).max() for k in stats_c) <= 1e-4

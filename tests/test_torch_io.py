@@ -3,7 +3,8 @@
 - The pure-Python msgpack reader gives the same tree as
   ``flax.serialization.msgpack_restore`` on the committed detector weights.
 - Neither ``deepfake_vit_tpu_torch`` nor ``chip_smoke.py`` imports ``jax``
-  or anything of ``deepfake_vit_tpu`` (a scan of their import statements).
+  or anything of ``deepfake_vit_tpu`` (a scan of the import statements of
+  every ``.py`` file of the package, its CLIs and trainer included).
 - ``chip_smoke.py`` refuses to run without a CUDA device.
 """
 
@@ -64,6 +65,14 @@ def test_port_imports_no_jax(path):
     banned = [m for m in _imports(path)
               if m.split(".")[0] in ("jax", "jaxlib", "flax", "deepfake_vit_tpu")]
     assert not banned, f"{path.name} imports {banned}"
+
+
+def test_import_scan_covers_the_entry_points():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for rel in ("train.py", "evaluate.py", "predict.py", "training/trainer.py",
+                "training/train_state.py", "data/dataset.py", "ops/augment.py",
+                "utils/io_utils.py"):
+        assert f"deepfake_vit_tpu_torch/{rel}" in names, rel
 
 
 def test_chip_smoke_needs_a_card(tmp_path):
