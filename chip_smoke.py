@@ -54,7 +54,10 @@
    ImageNet-normalized 224² faces rotated by up to 5°, bit for bit, timed
    beside ``F.grid_sample`` and its bound); one AdamW step of the B4 at
    224², batch 4, on the card against the CPU (float32 without TF32
-   within ``TRAIN_LIMITS``; bf16 printed beside it); 30 steps of the
+   within ``TRAIN_LIMITS``; the bf16 step piece by piece within
+   ``BF16_PIECE_LIMITS``, which two coarser controls must break, and the
+   whole bf16 step printed beside it); the optimizer alone, card against
+   CPU, with weight decay visible; 30 steps of the
    training configuration with augmentation on one batch of 32 drawn
    faces through ``Trainer``'s step, one warp launch a step and no other
    kernel, the loss falling; the checkpoint into ``DeepfakePredictor``
@@ -1334,29 +1337,39 @@ TRAIN_BATCHES = (32, 64)  # the learning run's batch and the configuration's bat
 LEARN_STEPS = 30
 TIMED_STEPS = 6
 # Card vs CPU, one AdamW step of the B4 at batch 4 (dropout, drop-connect and
-# augmentation off): loss and grad_norm relative; gradients as max |Δ| over
-# the largest |g| and as 1 − the cosine of the two gradient vectors;
-# parameters as max |Δ| (Adam's first step moves each element by about lr,
-# so float noise on an analytically zero gradient flips its sign: 2.5 lr
-# bounds that); running statistics as max |Δ| over the largest. float32
-# without TF32 on an H100 80GB HBM3 at 700 W, two runs: loss 3.1e-5 and
+# augmentation off), float32 without TF32 (``compare_steps``' measures).
+# On an H100 80GB HBM3 at 700 W, this batch, two runs: loss 3.1e-5 and
 # 1.0e-5, grad_norm 1.5e-5 and 5.0e-5, gradients 1.8e-4 and 2.3e-4 (1 −
-# cosine 1.3e-8 and 1.1e-8), parameters 1.98e-4 and 1.85e-4, statistics
-# 4.6e-6 and 5.0e-6. bf16 against the float32 CPU step: at the seeded
-# init, train-mode BatchNorm over the batch makes the B4 chaotic, and a
-# bf16 rounding at block 0 grows to 30-45 % of the last block's output
-# (2 % in eval mode; a B4 at 96² on the CPU), so the bf16 loss and
-# gradients land elsewhere, by how much depending on the batch (loss 0.09
-# and 0.58 apart, grad_norm 0.69 and 5.3, for two batches on that card);
-# the JAX package's own bf16 step
-# is as far from its float32 one (gradient cosine 0.87 for a b0 at 64² on
-# the CPU, the port's 0.92). Those are printed, not held; the parameters
-# (Adam's bound) and the running statistics are.
-TRAIN_LIMITS = {
-    "float32": {"loss_rel": 1e-4, "grad_norm_rel": 3e-4, "grads_rel": 1e-3, "grads_cos_gap": 1e-6,
-                "params_abs": 2.5e-4, "stats_rel": 5e-5},
-    "bfloat16": {"params_abs": 2.5e-4, "stats_rel": 0.2},
-}
+# cosine 1.3e-8 and 1.1e-8), statistics 4.6e-6 and 5.0e-6, the updates
+# 6.0e-4 lr (a sign error is 2 lr, a wrong lr about 1 lr). Over five
+# seeded batches (``tools/train_gates.py``) the gradients reach 7.3e-3
+# and 1 − cosine 1.5e-5 (two of the five above these limits: the head's
+# BatchNorm over 4 alike samples), the updates 3.4e-3 lr: the gradient
+# limits hold this batch.
+TRAIN_LIMITS = {"loss_rel": 1e-4, "grad_norm_rel": 3e-4, "grads_rel": 1e-3, "grads_cos_gap": 1e-6,
+                "update_rel": 1e-2, "stats_rel": 5e-5}
+# bf16 (the configuration's use_amp): at the seeded init a bf16 rounding
+# anywhere moves the whole step's gradient by about its own size (the
+# B4's bf16 step against the float32 one, the L2 gap of the gradients
+# 1.20-1.45 over five batches, as far as the CPU's bf16 step; 1.33 at
+# batch 32, 0.64 with freeze_bn), so the whole step is printed and held
+# only to be finite, and the step is held
+# piece by piece (``bf16_pieces``), each piece fed the float32 input.
+# Five seeded batches on that card: the median stem/block piece 0.00741-
+# 0.00747, the worst 0.0152-0.0377, the features 0.034-0.075, the
+# classifier (its BatchNorm over 4 samples) 0.028-0.25. Controls, same
+# batches: every convolution's output and gradient at 7, 6 and 5
+# significant bits (bf16 keeps 8) give medians 0.0097, 0.0157 and 0.0292;
+# BatchNorm computed in bf16 gives a median of 0.0103 and a worst piece
+# of 0.127-0.234. The median holds the precision; the worst piece holds a
+# fault in one piece; the features and the classifier only gross faults.
+# The run fails unless the 6-bit and the BatchNorm controls each break a
+# limit.
+BF16_PIECE_LIMITS = {"blocks_worst": 0.06, "blocks_median": 0.0086, "features": 0.15,
+                     "classifier": 0.5}
+# The optimizer alone, three AdamW + clip steps, card vs CPU, over lr:
+# 7.2e-5 measured; without weight decay 1.68.
+OPTIMIZER_LIMIT = 1e-3
 LEARN_AUG = {"enabled": True, "random_flip": True, "random_rotation": 5, "color_jitter": 0.1}
 # Kernel-name fragments → class for the train step's profile, first match wins.
 TRAIN_KERNEL_CLASSES = (
@@ -1411,38 +1424,194 @@ def flat_tree(tree, prefix=""):
     return out
 
 
+def round_conv_outputs(model, bits: int) -> None:
+    """A control, coarser than bf16: every convolution's output, and the
+    gradient that reaches it in the backward, rounded to ``bits``
+    significant bits (bf16 keeps 8)."""
+    from deepfake_vit_tpu_torch.models.layers import Conv
+
+    drop = 24 - bits
+
+    def coarse(x):
+        i = x.float().view(torch.int32)
+        return ((i + (1 << (drop - 1))) & -(1 << drop)).view(torch.float32).to(x.dtype)
+
+    class Coarse(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return coarse(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return coarse(g)
+
+    for m in model.modules():
+        if isinstance(m, Conv):
+            m.register_forward_hook(lambda module, inputs, out: Coarse.apply(out))
+
+
+def bn_in_input_dtype(model) -> None:
+    """A faulty control: every BatchNorm computes its statistics and its
+    output in the activations' dtype (bf16) instead of float32."""
+    from deepfake_vit_tpu_torch.models.layers import BatchNorm
+
+    def forward(self, x):
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        if self.training and not self.frozen:
+            dims = (0,) + tuple(range(2, x.dim()))
+            mean = x.mean(dims)
+            var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+        else:
+            mean, var = self.running_mean.to(x.dtype), self.running_var.to(x.dtype)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(x.dtype)
+        return (x - mean.view(shape)) * mul.view(shape) + self.bias.to(x.dtype).view(shape)
+
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.forward = forward.__get__(m)
+
+
 def one_train_step(cfg, dtype, dev, batch) -> dict:
     """One step of the train CLI's step function (no augmentation); the
-    metrics, the clipped gradients, the parameters and statistics after."""
+    metrics, the clipped gradients, each parameter's update and the
+    running statistics after."""
     from deepfake_vit_tpu_torch.models.bridge import export_flax_variables
     from deepfake_vit_tpu_torch.training import TrainState, make_train_step
 
     model, opt, crit = train_setup(cfg, dtype, dev)
     model.feature_extractor.backbone.drop_connect_rate = 0.0
+    p0 = {n: p.detach().double().cpu() for n, p in model.named_parameters()}
     metrics = make_train_step(model, crit, opt)(TrainState(), batch, 0)
-    grads = {n: p.grad.double().cpu().numpy() for n, p in model.named_parameters()}
-    out = {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
-           **{k: flat_tree(v) for k, v in export_flax_variables(model).items()}}
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "grads": {n: p.grad.double().cpu().numpy() for n, p in model.named_parameters()},
+           "update": {n: (p.detach().double().cpu() - p0[n]).numpy()
+                      for n, p in model.named_parameters()},
+           "batch_stats": flat_tree(export_flax_variables(model)["batch_stats"])}
     del model, opt
     return out
 
 
-def compare_steps(got: dict, want: dict) -> dict:
+def compare_steps(got: dict, want: dict, lr: float) -> dict:
+    """Two steps' gaps: loss and grad_norm relative; gradients as max |Δ|
+    over the largest |g| and as 1 − the cosine of the two gradient
+    vectors; the updates on the elements whose reference gradient is at
+    least 1e-3 of the largest (Adam moves the others by float noise's
+    sign) as max |Δ| over lr, and the share of them whose update moved the
+    other way; running statistics as max |Δ| over the largest."""
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
     gmax = max(np.abs(g).max() for g in want["grads"].values())
     g1 = np.concatenate([got["grads"][k].ravel() for k in want["grads"]])
     g0 = np.concatenate([g.ravel() for g in want["grads"].values()])
+    big = np.abs(g0) >= 1e-3 * gmax
+    du = np.abs(np.concatenate([got["update"][k].ravel() for k in want["grads"]])
+                - np.concatenate([want["update"][k].ravel() for k in want["grads"]]))[big]
     smax = max(np.abs(s).max() for s in want["batch_stats"].values())
     return {
         "loss_rel": rel(got["metrics"]["loss"], want["metrics"]["loss"]),
         "grad_norm_rel": rel(got["metrics"]["grad_norm"], want["metrics"]["grad_norm"]),
-        "grads_rel": max(np.abs(got["grads"][k] - g).max() for k, g in want["grads"].items())
-        / gmax,
+        "grads_rel": float(np.abs(g1 - g0).max() / gmax),
         "grads_cos_gap": 1.0 - float(g1 @ g0 / (np.linalg.norm(g1) * np.linalg.norm(g0))),
-        "params_abs": max(np.abs(got["params"][k] - p).max() for k, p in want["params"].items()),
+        "grads_l2_rel": float(np.linalg.norm(g1 - g0) / np.linalg.norm(g0)),
+        "update_rel": float(du.max() / lr),
+        "update_flipped": float((du > lr).mean()),
         "stats_rel": max(np.abs(got["batch_stats"][k] - s).max()
                          for k, s in want["batch_stats"].items()) / smax,
     }
+
+
+def bf16_pieces(cfg: dict, dev, batch, round_bits=None, fault=None) -> dict:
+    """The bf16 train step piece by piece against float32 on the CPU: the
+    stem, each MBConv block, the features (head conv, attention, pooling)
+    and the classifier with the loss, each fed the float32 model's input
+    to it, in train mode. A piece other than the last ends in a seeded
+    random probe (the sum of its output times fixed noise). For each
+    piece: its output, the gradient of its input and its parameters'
+    gradients as the L2 norm of the difference over the reference's, the
+    worst of the three. Returns the worst and the median piece of the stem
+    and blocks, and the features' and the classifier's. ``round_bits`` and
+    ``fault`` act on the bf16 model (the controls)."""
+    ref, _, crit = train_setup(cfg, torch.float32, "cpu")
+    low, _, crit_low = train_setup(cfg, torch.bfloat16, dev)
+    for m in (ref, low):
+        m.feature_extractor.backbone.drop_connect_rate = 0.0
+        m.train()
+    if round_bits is not None:
+        round_conv_outputs(low, round_bits)
+    if fault is not None:
+        fault(low)
+    n = len(ref.feature_extractor.backbone.blocks)
+    lms, labels = torch.from_numpy(batch["landmarks"]), torch.from_numpy(batch["label"])
+
+    def piece(k, m, x, where):
+        bb = m.feature_extractor.backbone
+        if k == 0:
+            return bb(x, stop_block=0)
+        if k <= n:
+            return getattr(bb, f"block_{k - 1}")(x.to(bb.dtype))
+        if k == n + 1:
+            return m.feature_extractor(x, lms.to(where), backbone_start_block=n)
+        h = x.to(bb.dtype)
+        for i in range(m.n_hidden):
+            h = getattr(m, f"head_{i}")(h)
+        return (crit if where == "cpu" else crit_low)(m.final(h).float(), labels.to(where),
+                                                       x)["total"]
+
+    def gap(a, b):
+        return float((a.double().cpu() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.from_numpy(batch["image"])
+    errs = []
+    for k in range(n + 3):
+        runs = []
+        for m, where in ((ref, "cpu"), (low, dev)):
+            m.zero_grad(set_to_none=True)
+            xi = x.to(where).clone().requires_grad_()
+            runs.append((xi, piece(k, m, xi, where)))
+        (xr, yr), (xl, yl) = runs
+        if k <= n + 1:
+            probe = torch.randn(yr.shape, generator=g)
+            (yr * probe).sum().backward()
+            (yl.float() * probe.to(dev)).sum().backward()
+        else:
+            yr.backward()
+            yl.backward()
+        named = dict(low.named_parameters())
+        pr = [(name, p.grad) for name, p in ref.named_parameters() if p.grad is not None]
+        errs.append(max(gap(yl.detach().float(), yr.detach()), gap(xl.grad, xr.grad),
+                        gap(torch.cat([named[name].grad.flatten().cpu() for name, _ in pr]),
+                            torch.cat([q.flatten() for _, q in pr]))))
+        x = yr.detach()
+    del ref, low
+    return {"blocks_worst": max(errs[:n + 1]), "blocks_median": statistics.median(errs[:n + 1]),
+            "features": errs[n + 1], "classifier": errs[n + 2]}
+
+
+def optimizer_card_vs_cpu(dev, weight_decay: float = 0.1) -> float:
+    """The train CLI's optimizer (AdamW, clip 1.0 by global norm) on the
+    card against the CPU: three steps on seeded leaves of B4 shapes with
+    seeded gradients, lr 1e-2 (at the configuration's lr and weight decay
+    of 1e-4 the decay, lr · wd · p, lies below float32's resolution of p).
+    Max |Δ| of the parameters over lr."""
+    from deepfake_vit_tpu_torch.training import create_optimizer
+    from deepfake_vit_tpu_torch.training.optim import clip_and_step
+
+    lr, shapes = 1e-2, [(48, 3, 3, 3), (1792,), (1792, 448), (2, 32)]
+    rng = np.random.default_rng(3)
+    p0 = [rng.normal(0, 1, s).astype(np.float32) for s in shapes]
+    grads = [[rng.normal(0, 1e-3 * (k + 1), s).astype(np.float32) for s in shapes]
+             for k in range(3)]
+    out = []
+    for where, wd in (("cpu", 0.1), (dev, weight_decay)):
+        ps = [torch.nn.Parameter(torch.tensor(p, device=where)) for p in p0]
+        opt = create_optimizer(ps, {"type": "AdamW", "lr": lr, "weight_decay": wd},
+                               gradient_clip=1.0)
+        for g in grads:
+            for p, x in zip(ps, g):
+                p.grad = torch.tensor(x, device=where)  # a copy: the clip scales it
+            clip_and_step(opt, ps)
+        out.append([p.detach().double().cpu().numpy() for p in ps])
+    return max(np.abs(a - b).max() for a, b in zip(*out)) / lr
 
 
 def train_profile(step, batch, step_ms: float) -> dict:
@@ -1469,7 +1638,7 @@ def train_profile(step, batch, step_ms: float) -> dict:
         by_class[next((label for label, keys in TRAIN_KERNEL_CLASSES
                        if any(k in low for k in keys)), "other")] += us
     return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": max(0.0, 1.0 - busy_us / 1e3 / step_ms),
+            "device_idle_share": 1.0 - busy_us / 1e3 / step_ms,
             "device_ms_by_class": {k: v / 1e3 for k, v in
                                    sorted(by_class.items(), key=lambda kv: -kv[1])},
             "top_kernels_ms": [(k, v / 1e3) for k, v in
@@ -1478,7 +1647,8 @@ def train_profile(step, batch, step_ms: float) -> dict:
 
 def training_phase(kernels, wk, card: str, dev) -> dict:
     """The training path on the card: the warp kernel at the train step's
-    shape; one step card vs CPU in float32 and in bf16; LEARN_STEPS steps
+    shape; one step card vs CPU in float32, in bf16 piece by piece, and
+    the optimizer alone; LEARN_STEPS steps
     of the training configuration (bf16, CombinedLoss, AdamW + clip 1.0,
     augmentation on; dropout and drop-connect off) on one batch of 32
     faces with every kernel's launches counted (one warp a step) and the
@@ -1507,28 +1677,49 @@ def training_phase(kernels, wk, card: str, dev) -> dict:
     res["warp_row"] = row
     del faces
 
-    # Card vs CPU: one step, float32 without TF32 and bf16.
+    # Card vs CPU: one step in float32 without TF32, the bf16 step piece by
+    # piece with its controls, the optimizer alone.
     cfg = copy.deepcopy(TRAINING_CONFIG)
     cfg["model"]["feature_extractor"]["dropout_rate"] = 0.0
     cfg["model"]["classifier"]["dropout_rate"] = 0.0
+    lr = cfg["training"]["optimizer"]["lr"]
     small = train_faces(4, 22)
     t0 = time.time()
     want = one_train_step(cfg, torch.float32, "cpu", small)
     cpu_s = time.time() - t0
-    errs = {}
     with tf32_off():
-        errs["float32"] = compare_steps(one_train_step(cfg, torch.float32, dev, small), want)
-    errs["bfloat16"] = compare_steps(one_train_step(cfg, torch.bfloat16, dev, small), want)
+        f32 = compare_steps(one_train_step(cfg, torch.float32, dev, small), want, lr)
+    whole = compare_steps(one_train_step(cfg, torch.bfloat16, dev, small), want, lr)
+    pieces = bf16_pieces(cfg, dev, small)
+    controls = {"convolutions at 6 bits": bf16_pieces(cfg, dev, small, round_bits=6),
+                "BatchNorm in bf16": bf16_pieces(cfg, dev, small, fault=bn_in_input_dtype)}
+    opt_err, opt_control = optimizer_card_vs_cpu(dev), optimizer_card_vs_cpu(dev, 0.0)
     torch.cuda.empty_cache()
-    for name, err in errs.items():
-        print(f"train step, B4 at 224², batch 4, card ({name}) vs CPU (float32, {cpu_s:.1f} s): "
-              f"{ {k: float(f'{v:.3g}') for k, v in err.items()} } (limits {TRAIN_LIMITS[name]})")
-    for name, err in errs.items():
-        bad = {k: v for k, v in err.items() if not math.isfinite(v) or (
-            k in TRAIN_LIMITS[name] and not v <= TRAIN_LIMITS[name][k])}
-        if bad:
-            fail(f"the train step on the card ({name}) disagrees with the CPU: {bad}")
-    res["card_vs_cpu"] = errs
+    short = lambda d: {k: float(f"{v:.3g}") for k, v in d.items()}  # noqa: E731
+    print(f"train step, B4 at 224², batch 4, card (float32) vs CPU (float32, {cpu_s:.1f} s): "
+          f"{short(f32)} (limits {TRAIN_LIMITS})")
+    print(f"train step, bf16 on the card vs float32 on the CPU, whole step (printed, not held): "
+          f"{short(whole)}")
+    print(f"train step, bf16 piece by piece: {short(pieces)} (limits {BF16_PIECE_LIMITS}); "
+          + "; ".join(f"control, {k}: {short(v)}" for k, v in controls.items()))
+    print(f"optimizer (AdamW + clip, 3 steps) card vs CPU: {opt_err:.3g} lr (limit "
+          f"{OPTIMIZER_LIMIT}); control without weight decay {opt_control:.3g} lr")
+    bad = {k: f32[k] for k, lim in TRAIN_LIMITS.items() if not f32[k] <= lim}
+    if bad:
+        fail(f"the train step on the card (float32) disagrees with the CPU: {bad}")
+    if not all(math.isfinite(v) for v in whole.values()):
+        fail(f"the whole bf16 train step on the card is not finite: {whole}")
+    over = lambda d: {k: v for k, v in d.items() if not v <= BF16_PIECE_LIMITS[k]}  # noqa: E731
+    if over(pieces):
+        fail(f"the bf16 train step's pieces on the card disagree with the CPU: {over(pieces)}")
+    blind = [k for k, v in controls.items() if not over(v)]
+    if blind:
+        fail(f"the bf16 limits pass the control(s) {blind}: they cannot see a fault")
+    if not (opt_err <= OPTIMIZER_LIMIT < opt_control):
+        fail(f"the optimizer on the card: {opt_err} lr from the CPU, control {opt_control} lr")
+    res["card_vs_cpu"] = {"float32": f32, "bfloat16_whole_step": whole, "bfloat16_pieces": pieces,
+                          "bfloat16_controls": controls, "optimizer_lr": opt_err,
+                          "optimizer_control_lr": opt_control}
 
     # It learns: the training configuration with augmentation on, dropout
     # and drop-connect off (their masks' noise hides a 30-step trend: a b0
@@ -1625,7 +1816,12 @@ def training_phase(kernels, wk, card: str, dev) -> dict:
     step_ms = statistics.median(r["ms_per_step"] for r in rounds if r["batch"] == BATCH)
     prof = train_profile(lambda b: step(b), batches[BATCH], step_ms)
     print(f"    profiled step, B = {BATCH}: device busy {prof['device_busy_ms']:.2f} ms of "
-          f"{step_ms:.2f} ms a step, idle share {prof['device_idle_share']:.3f}")
+          f"{step_ms:.2f} ms a step (the timed median), idle share "
+          f"{prof['device_idle_share']:.3f}; the profiled step took {prof['profiled_wall_ms']:.2f} "
+          f"ms on the host's clock")
+    if prof["device_idle_share"] < 0:
+        print("    the profiled step's device time exceeds the timed median step: the idle share "
+              "is not measured in this run")
     for label, ms in prof["device_ms_by_class"].items():
         print(f"    {label:38s} {ms:8.3f} ms")
     for name, ms in prof["top_kernels_ms"][:6]:

@@ -5,8 +5,7 @@ package's ``data/dataset.py``).
   True``, each face decoded to RGB float32 HWC (``cv2``, imported when an
   image is read), resized to ``image_size`` and ImageNet-normalized;
   real=0 / fake=1 labels; landmarks from ``.npy`` files; inverse-frequency
-  class weights. A face stored as a ``.npy`` array of RGB uint8 (H, W, 3)
-  at ``image_size`` needs no decoder, for machines without OpenCV.
+  class weights.
 - ``collate_batch``, ``HostLoader`` (epoch-seeded order, bit for bit the
   JAX loader's; a Python thread pool decodes), ``create_dataloaders``.
 - ``batch_to_device``: a batch's numeric leaves as tensors on a device.
@@ -46,21 +45,14 @@ def _path_field(row: Dict[str, str], key: str) -> Optional[str]:
 def _load_image(path, image_size: int, normalize: bool = True) -> np.ndarray:
     """Decode a face to RGB float32 (image_size, image_size, 3) in [0, 1],
     ImageNet-normalized when ``normalize``; zeros if it does not decode."""
-    path = Path(path)
-    if path.suffix == ".npy":
-        rgb = np.load(path, allow_pickle=False)
-        if rgb.shape != (image_size, image_size, 3):
-            raise ValueError(f"{path}: a .npy face must be ({image_size}, {image_size}, 3), "
-                             f"got {rgb.shape}")
-    else:
-        import cv2
+    import cv2
 
-        bgr = cv2.imread(str(path), cv2.IMREAD_COLOR)
-        if bgr is None:
-            return np.zeros((image_size, image_size, 3), dtype=np.float32)
-        rgb = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
-        if rgb.shape[:2] != (image_size, image_size):
-            rgb = cv2.resize(rgb, (image_size, image_size), interpolation=cv2.INTER_LINEAR)
+    bgr = cv2.imread(str(path), cv2.IMREAD_COLOR)
+    if bgr is None:
+        return np.zeros((image_size, image_size, 3), dtype=np.float32)
+    rgb = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+    if rgb.shape[:2] != (image_size, image_size):
+        rgb = cv2.resize(rgb, (image_size, image_size), interpolation=cv2.INTER_LINEAR)
     img = rgb.astype(np.float32) / 255.0
     if normalize:
         img = (img - IMAGENET_MEAN) / IMAGENET_STD

@@ -1,15 +1,13 @@
 """Write a synthetic processed directory for the train and evaluate CLIs.
 
     python -m deepfake_vit_tpu_torch.tools.synth_processed --out DIR
-        [--train 128] [--val 32] [--test 32] [--size 224] [--format npy|png] [--seed 0]
+        [--train 128] [--val 32] [--test 32] [--size 224] [--seed 0]
 
 The layout ``scripts/preprocess_dataset.py`` writes: ``faces/``,
 ``landmarks/`` (5×2 float32 at the reference layout, jittered) and
-``splits/{train,val,test}.csv``. Faces are RGB noise over a colour
-gradient; the fake ones (every other face) get a red cast, a cue a
-classifier learns in a few steps. ``--format npy`` stores each face as a
-uint8 (size, size, 3) array, which the port's dataset reads without
-OpenCV; ``png`` needs ``cv2``.
+``splits/{train,val,test}.csv``. Faces are PNGs (written with ``cv2``) of
+RGB noise over a colour gradient; the fake ones (every other face) get a
+red cast, a cue a classifier learns in a few steps.
 """
 
 from __future__ import annotations
@@ -26,8 +24,9 @@ REFERENCE = np.asarray([[0.31, 0.32], [0.69, 0.32], [0.5, 0.55], [0.35, 0.75], [
 HEADER = "image_id,dataset,label,processed,face_path,landmark_path,metadata_path,quality_score\n"
 
 
-def write_processed(out: Path, counts=(128, 32, 32), size: int = 224, fmt: str = "npy",
-                    seed: int = 0) -> Path:
+def write_processed(out: Path, counts=(128, 32, 32), size: int = 224, seed: int = 0) -> Path:
+    import cv2
+
     rng = np.random.default_rng(seed)
     for d in ("faces", "landmarks", "splits"):
         (out / d).mkdir(parents=True, exist_ok=True)
@@ -43,14 +42,8 @@ def write_processed(out: Path, counts=(128, 32, 32), size: int = 224, fmt: str =
             img[..., 0] += 40.0 * fake
             rgb = np.clip(img, 0, 255).astype(np.uint8)
             name = f"synth_{k:06d}"
-            if fmt == "npy":
-                face = f"faces/{name}.npy"
-                np.save(out / face, rgb)
-            else:
-                import cv2
-
-                face = f"faces/{name}.png"
-                cv2.imwrite(str(out / face), cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
+            face = f"faces/{name}.png"
+            cv2.imwrite(str(out / face), cv2.cvtColor(rgb, cv2.COLOR_RGB2BGR))
             lms = REFERENCE * size + rng.normal(0, 1.5, (5, 2)).astype(np.float32)
             np.save(out / "landmarks" / f"{name}.npy", lms.astype(np.float32))
             rows.append(f"{name},synth,{('real', 'fake')[fake]},True,{face},"
@@ -67,11 +60,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--val", type=int, default=32)
     parser.add_argument("--test", type=int, default=32)
     parser.add_argument("--size", type=int, default=224)
-    parser.add_argument("--format", choices=("npy", "png"), default="npy")
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
-    write_processed(Path(args.out), (args.train, args.val, args.test), args.size, args.format,
-                    args.seed)
+    write_processed(Path(args.out), (args.train, args.val, args.test), args.size, args.seed)
     print(f"wrote {args.train + args.val + args.test} faces under {args.out}")
     return 0
 

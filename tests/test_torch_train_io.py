@@ -68,7 +68,7 @@ HEAD = [16]
 def processed(tmp_path_factory):
     """The tool's processed directory with PNG faces written by cv2, and an
     unprocessed row in each split that the datasets must drop."""
-    root = write_processed(tmp_path_factory.mktemp("processed"), (12, 4, 4), S, "png")
+    root = write_processed(tmp_path_factory.mktemp("processed"), (12, 4, 4), S)
     for split in ("train", "val", "test"):
         with open(root / "splits" / f"{split}.csv", "a") as f:
             f.write("skipped,synth,fake,False,faces/none.png,,,0.1\n")

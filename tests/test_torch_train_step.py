@@ -22,6 +22,23 @@ package is untouched), so the two runs are deterministic and comparable:
   move by Adam's normalized noise, up to lr a step in either package in
   either direction; they are held to 2 · steps · lr instead.
 
+In bf16 (the configuration's ``use_amp``), the port against the JAX
+package's bf16, each compiled with ``xla_allow_excess_precision=False``
+so that XLA rounds where the TPU does:
+
+- an MBConv block's train-mode forward and backward alone (a seeded
+  input and output probe; blocks 0, 1, 2 and 15): output, input gradient
+  and parameter gradients within 0.0125 of the reference's L2 norm
+  (measured 0.0089-0.0102). The same
+  block with every convolution's output and gradient rounded to 6
+  significant bits, a quarter of bf16's precision, is over the limit
+  (0.0141-0.0179), which the test asserts.
+- one whole step: loss within 0.1 relative (measured 0.043), grad_norm
+  within 0.25 (0.10), 1 − the gradients' cosine within 0.35 (0.158). At
+  the seeded init a bf16 rounding anywhere moves the whole gradient this
+  far (JAX's bf16 step against its float32 step: 0.018, 0.073, 0.11), so
+  these limits catch gross faults only; the blocks hold the precision.
+
 Then the port alone: ``remat=True`` gives the step ``remat=False``
 gives, the running statistics included; dropout and drop-connect keep
 1 − rate, scale by 1/(1 − rate), and drop-connect draws one mask a
@@ -45,7 +62,7 @@ from deepfake_vit_tpu.training.train_state import _forward_loss as j_forward_los
 from deepfake_vit_tpu.training.train_state import make_train_step as jmake_train_step
 from deepfake_vit_tpu_torch.models.bridge import export_flax_variables, load_flax_variables
 from deepfake_vit_tpu_torch.models.feature_extractor import DeepfakeDetectionModel
-from deepfake_vit_tpu_torch.models.layers import drop_connect, dropout, init_weights
+from deepfake_vit_tpu_torch.models.layers import Conv, drop_connect, dropout, init_weights
 from deepfake_vit_tpu_torch.training import TrainState, create_optimizer, make_criterion
 from deepfake_vit_tpu_torch.training import make_train_step
 from deepfake_vit_tpu_torch.training.train_state import _forward_loss
@@ -201,6 +218,117 @@ def test_whole_steps_match(setup, no_jax_drop_connect, name, opt_cfg, clip, n, a
             assert err <= 1e-4 * max(np.abs(ref[k]).max(), 1.0), (k, err)
     stats, ref_stats = _flat(got["batch_stats"]), _flat(jax.device_get(jstate.batch_stats))
     assert max(np.abs(stats[k] - ref_stats[k]).max() for k in ref_stats) <= 1e-4
+
+
+def _jit_rounding(fn, *args):
+    """``fn`` jitted with ``xla_allow_excess_precision=False``: by default
+    XLA's CPU compiler keeps bf16 intermediates in float32."""
+    compiled = jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+    return jax.device_get(compiled(*args))
+
+
+def _coarse_convs(model, bits):
+    """Every convolution's output and its gradient rounded to ``bits``
+    significant bits (bf16 keeps 8): a control below bf16's precision."""
+    drop = 24 - bits
+
+    def coarse(x):
+        i = x.float().view(torch.int32)
+        return ((i + (1 << (drop - 1))) & -(1 << drop)).view(torch.float32).to(x.dtype)
+
+    class Coarse(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return coarse(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return coarse(g)
+
+    for m in model.modules():
+        if isinstance(m, Conv):
+            m.register_forward_hook(lambda module, inputs, out: Coarse.apply(out))
+
+
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+def _sorted_leaves(tree):
+    return np.concatenate([np.asarray(x, np.float64).ravel() for _, x in sorted(
+        jax.tree_util.tree_leaves_with_path(tree), key=lambda t: jax.tree_util.keystr(t[0]))])
+
+
+@pytest.mark.parametrize("idx", [0, 1, 2, 15])  # no expansion, stride 2, residual, the last
+def test_bf16_block_matches_jax_bf16_block(setup, idx):
+    _, v, _ = setup
+    args = jeff.block_args("b0")[idx]
+    size = S // 2 // int(np.prod([a["stride"] for a in jeff.block_args("b0")[:idx]]))
+    rng = np.random.default_rng(idx)
+    x = rng.normal(0, 1, (B, size, size, args["in_filters"])).astype(np.float32)
+    out = size // args["stride"]
+    probe = rng.normal(0, 1, (B, out, out, args["out_filters"])).astype(np.float32)
+    params = v["params"]["feature_extractor"]["backbone"][f"block_{idx}"]
+    stats = v["batch_stats"]["feature_extractor"]["backbone"][f"block_{idx}"]
+    block = jeff.MBConvBlock(**args, dtype=jnp.bfloat16)
+
+    def f(p, xb):
+        y, _ = block.apply({"params": p, "batch_stats": stats}, xb, train=True,
+                           mutable=["batch_stats"])
+        return jnp.sum(y.astype(jnp.float32) * probe), y
+
+    (_, jy), (jgp, jgx) = _jit_rounding(jax.value_and_grad(f, argnums=(0, 1), has_aux=True),
+                                        params, jnp.asarray(x, jnp.bfloat16))
+    ref = (np.asarray(jy, np.float32), np.asarray(jgx, np.float32), _sorted_leaves(jgp))
+
+    def port(bits=None):
+        m = load_flax_variables(DeepfakeDetectionModel(
+            variant="b0", classifier_hidden_dims=HEAD, dtype=torch.bfloat16), v)
+        if bits:
+            _coarse_convs(m, bits)
+        blk = getattr(m.feature_extractor.backbone, f"block_{idx}").train()
+        blk.drop_rate = 0.0
+        xt = torch.from_numpy(x).permute(0, 3, 1, 2).to(torch.bfloat16).requires_grad_()
+        y = blk(xt)
+        (y.float() * torch.from_numpy(probe).permute(0, 3, 1, 2)).sum().backward()
+        nhwc = lambda t: t.detach().float().permute(0, 2, 3, 1).numpy()  # noqa: E731
+        return nhwc(y), nhwc(xt.grad), _sorted_leaves(_grads_tree(blk))
+
+    err = max(_rel_l2(a, b) for a, b in zip(port(), ref))
+    assert err <= 0.0125, err
+    coarse = max(_rel_l2(a, b) for a, b in zip(port(6), ref))
+    assert coarse > 0.0125, coarse  # the limit sees a precision below bf16's
+
+
+def test_bf16_step_matches_jax_bf16_step(setup, no_jax_drop_connect):
+    _, v, batch = setup
+    jm = JModel(variant="b0", classifier_hidden_dims=HEAD, dropout_rate=0.0,
+                feature_dropout_rate=0.0, dtype=jnp.bfloat16)
+    jcrit = jmake_criterion(LOSS, jnp.asarray(CLASS_WEIGHTS))
+    jb = {k: jnp.asarray(x) for k, x in batch.items()}
+
+    def reference(params):
+        (loss, _), grads = jax.value_and_grad(
+            lambda p: j_forward_loss(jm, jcrit, p, v["batch_stats"], jb, jax.random.PRNGKey(2),
+                                     True), has_aux=True)(params)
+        return loss, grads
+
+    jloss, jgrads = _jit_rounding(reference, v["params"])
+    model = load_flax_variables(DeepfakeDetectionModel(
+        variant="b0", classifier_hidden_dims=HEAD, dropout_rate=0.0, feature_dropout_rate=0.0,
+        dtype=torch.bfloat16), v).train()
+    model.feature_extractor.backbone.drop_connect_rate = 0.0
+    loss, _ = _forward_loss(model, make_criterion(LOSS, torch.from_numpy(CLASS_WEIGHTS)),
+                            _tbatch(batch), torch.Generator(), True)
+    loss.backward()
+    grads, ref = _flat(_grads_tree(model)), _flat(jgrads)
+    g1 = np.concatenate([grads[k].ravel() for k in ref])
+    g0 = np.concatenate([g.ravel() for g in ref.values()])
+    assert abs(loss.item() - float(jloss)) <= 0.1 * abs(float(jloss))
+    assert abs(np.linalg.norm(g1) - np.linalg.norm(g0)) <= 0.25 * np.linalg.norm(g0)
+    assert 1.0 - g1 @ g0 / (np.linalg.norm(g1) * np.linalg.norm(g0)) <= 0.35
 
 
 def test_remat_gives_the_same_step(setup):
