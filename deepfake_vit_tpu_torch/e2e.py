@@ -15,7 +15,11 @@ warp (the class default), the fractional one and, when the frame is no
 larger than the window, the whole-frame warp, each with the tap modes
 ``legacy``, ``uw``, ``uw16`` and ``int8`` (``warp_tap_mode``); bf16 or
 float32; the SCRFD detector family, in its own dtype or as the int8 graph
-(``use_int8_detector``), and the S2D-Lite family (``detector_arch="lite"``);
+(``use_int8_detector``), the S2D-Lite family (``detector_arch="lite"``)
+and MTCNN-Lite (``detector_arch="mtcnn"``, at serving_size ==
+detection_input_size only: with a pool ratio of 2 or more the JAX class
+folds the pool into an SCRFD stem it cannot build for this family, and
+``build_detection_net`` raises a ``ValueError`` instead);
 the int8 late-stage classifier tail (``use_int8_tail``) with
 ``calibrate_int8``/``calibrate_int8_detector``; the fused early backbone
 stages (``use_fused_backbone``: stem and MBConv blocks through the fused
@@ -66,8 +70,8 @@ class FusedPipeline:
     faces axis (B, K, …) and a ``face_valid`` mask (the NMS survivors above
     the confidence threshold). ``warp_tap_mode`` picks the warp kernel's
     taps ("legacy", "uw", "uw16", "int8"; see ``ops/warp.py``);
-    ``detector_arch`` the detector family ("scrfd" or "lite", each with its
-    committed weights).
+    ``detector_arch`` the detector family ("scrfd", "lite" or "mtcnn", each
+    with its committed weights; "mtcnn" only at a pool ratio of 1).
 
     ``use_int8_tail`` runs the backbone from block ``int8_tail_start``
     (default: ``default_tail_start``) through the s8 GEMM kernel and

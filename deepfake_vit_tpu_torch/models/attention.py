@@ -32,7 +32,7 @@ class LandmarkAttention(nn.Module):
         """feature_maps: (B, C, H, W); landmarks: (B, 5, 2) in input-px coords."""
         H, W = feature_maps.shape[2], feature_maps.shape[3]
         amap = landmark_gaussian_map(
-            landmarks.float(), (H, W), sigma=self.sigma, weights=self.attention_weights,
+            landmarks.to(torch.promote_types(feature_maps.dtype, torch.float32)), (H, W), sigma=self.sigma, weights=self.attention_weights,
             input_size=self.input_size, normalize="global_max", clip_range=(0.1, 1.0),
         )  # (B, 1, H, W)
         return feature_maps * amap.to(feature_maps.dtype)

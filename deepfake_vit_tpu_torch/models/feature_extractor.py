@@ -92,7 +92,8 @@ class DeepfakeDetectionModel(nn.Module):
         x = features
         for i in range(self.n_hidden):
             x = getattr(self, f"head_{i}")(x, generator)
-        return self.final(x).float(), features.float()
+        wide = torch.promote_types(features.dtype, torch.float32)
+        return self.final(x).to(wide), features.to(wide)
 
 
 def create_model_from_config(model_cfg: Dict[str, Any],

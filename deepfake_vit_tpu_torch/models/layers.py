@@ -146,7 +146,7 @@ class Dense(nn.Module):
 
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` over dim 1 (NCHW or (B, C)), computed in
-    float32 and returned in the input dtype.
+    float32 (float64 for float64 inputs) and returned in the input dtype.
 
     In eval mode, or when ``frozen`` (the backbone's ``freeze_bn``), it
     normalizes with the running statistics. In train mode it normalizes
@@ -169,7 +169,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training and not self.frozen:
             dims = (0,) + tuple(range(2, x.dim()))
             mean = xf.mean(dims)

@@ -22,6 +22,7 @@ from ..ops.anchors import NUM_ANCHORS, STRIDES
 from .layers import BatchNorm, Conv
 
 _BN_EPS = 1e-5
+_BN_MOMENTUM = 0.9  # flax's, for the running statistics in train mode
 
 
 def _fold_kernel(k, pool: int):
@@ -65,7 +66,7 @@ class _ConvBN(nn.Module):
         super().__init__()
         self.fold_pool = fold_pool
         self.Conv_0 = Conv(cin, features, kernel, stride)
-        self.BatchNorm_0 = BatchNorm(features, _BN_EPS)
+        self.BatchNorm_0 = BatchNorm(features, _BN_EPS, _BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.fold_pool
@@ -82,11 +83,11 @@ class _ResBlock(nn.Module):
         super().__init__()
         self._ConvBN_0 = _ConvBN(cin, features, 3, stride)
         self.Conv_0 = Conv(features, features, 3)
-        self.BatchNorm_0 = BatchNorm(features, _BN_EPS)
+        self.BatchNorm_0 = BatchNorm(features, _BN_EPS, _BN_MOMENTUM)
         self.project = stride != 1 or cin != features
         if self.project:
             self.Conv_1 = Conv(cin, features, 1, stride)
-            self.BatchNorm_1 = BatchNorm(features, _BN_EPS)
+            self.BatchNorm_1 = BatchNorm(features, _BN_EPS, _BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.BatchNorm_0(self.Conv_0(self._ConvBN_0(x)))
@@ -115,9 +116,11 @@ class _ScrfdHead(nn.Module):
         for i in range(self.depth):
             x = getattr(self, f"tower{i}")(x)
 
+        wide = torch.promote_types(x.dtype, torch.float32)  # float64 stays
+
         def flat(y: torch.Tensor, k: int) -> torch.Tensor:
             # NHWC row-major, then anchor — permute before the reshape.
-            return y.permute(0, 2, 3, 1).reshape(B, -1, k).float()
+            return y.permute(0, 2, 3, 1).reshape(B, -1, k).to(wide)
 
         return {
             "scores": flat(self.cls(x), 1)[..., 0],

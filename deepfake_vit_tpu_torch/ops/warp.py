@@ -33,10 +33,13 @@ from .umeyama import invert_affine
 from .warp_kernel import WARP_KERNELS, crop_frac, crop_frac_mxu, crop_pool
 
 
-def _bilinear_sample_one(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
-                         border_value: float) -> torch.Tensor:
-    """img: (H, W, C); xs, ys: (Ho, Wo) source coords. Returns (Ho, Wo, C)."""
-    H, W = img.shape[0], img.shape[1]
+def _bilinear_sample(images: torch.Tensor, frame_idx: torch.Tensor, xs: torch.Tensor,
+                     ys: torch.Tensor, border_value: float) -> torch.Tensor:
+    """images: (B, H, W, C); frame_idx: (N,) the frame each output reads;
+    xs, ys: (N, Ho, Wo) source coords. Returns (N, Ho, Wo, C)."""
+    B, H, W, C = images.shape
+    flat = images.reshape(B * H * W, C)
+    base = (frame_idx.long() * (H * W))[:, None, None]
     x0 = torch.floor(xs)
     y0 = torch.floor(ys)
     x1 = x0 + 1.0
@@ -50,7 +53,7 @@ def _bilinear_sample_one(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
         valid = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
         xc = xi.clamp(0, W - 1).long()
         yc = yi.clamp(0, H - 1).long()
-        vals = img[yc, xc]
+        vals = flat[base + yc * W + xc]
         vals = torch.where(valid[..., None], vals, torch.full_like(vals, border_value))
         return w[..., None] * vals
 
@@ -60,6 +63,13 @@ def _bilinear_sample_one(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
         + tap(x0, y1, wx0 * wy1)
         + tap(x1, y1, wx1 * wy1)
     )
+
+
+def _bilinear_sample_one(img: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+                         border_value: float) -> torch.Tensor:
+    """img: (H, W, C); xs, ys: (Ho, Wo) source coords. Returns (Ho, Wo, C)."""
+    zero = torch.zeros(1, dtype=torch.long, device=img.device)
+    return _bilinear_sample(img[None], zero, xs[None], ys[None], border_value)[0]
 
 
 def warp_affine(images: torch.Tensor, matrices: torch.Tensor, out_size: Tuple[int, int],
@@ -84,6 +94,33 @@ def warp_affine(images: torch.Tensor, matrices: torch.Tensor, out_size: Tuple[in
         sy = A[1, 0] * xs + A[1, 1] * ys + A[1, 2]
         outs.append(_bilinear_sample_one(img, sx, sy, border_value))
     return torch.stack(outs)
+
+
+def crop_and_resize(images: torch.Tensor, boxes: torch.Tensor, out_size: Tuple[int, int],
+                    border_value: float = 0.0,
+                    frame_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Box crops resized bilinearly, as the exact float32 warp: the JAX
+    package's ``ops/warp.py::crop_and_resize``.
+
+    images: (B, H, W, C); boxes: (N, 4) [x1, y1, x2, y2] in source pixels;
+    ``frame_idx`` (N,): the frame each box is cut from (the identity when
+    None, N = B). Returns (N, Ho, Wo, C) float32.
+    """
+    Ho, Wo = out_size
+    images = images.float()
+    boxes = boxes.float()
+    dev = images.device
+    if frame_idx is None:
+        frame_idx = torch.arange(boxes.shape[0], device=dev)
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    sx = ((x2 - x1) / Wo)[:, None, None]
+    sy = ((y2 - y1) / Ho)[:, None, None]
+    zeros = torch.zeros_like(sx)
+    ys, xs = torch.meshgrid(torch.arange(Ho, dtype=torch.float32, device=dev),
+                            torch.arange(Wo, dtype=torch.float32, device=dev), indexing="ij")
+    src_x = sx * xs + zeros * ys + x1[:, None, None]
+    src_y = zeros * xs + sy * ys + y1[:, None, None]
+    return _bilinear_sample(images, frame_idx, src_x, src_y, border_value)
 
 
 def _avg_pool2(images: torch.Tensor) -> torch.Tensor:

@@ -15,9 +15,13 @@ at the top left of a zero canvas.
 
 The weights are the JAX package's in-framework-trained flax msgpack files,
 read by path (``utils/msgpack.py``) and carried across by
-``models/bridge.py``. Ported families: ``scrfd`` (alias ``retinaface``)
-and ``lite``; ``mtcnn``, ``hog`` and the cascade refinement stage
-(``refine=True``) are still to port (ROADMAP Queue A item 7).
+``models/bridge.py``. Families: ``scrfd`` (alias ``retinaface``),
+``lite``, ``mtcnn`` (MTCNN-Lite) and, through ``create_face_detector``,
+``hog`` (alias ``dlib``; ``models/hog_detector.py``). ``refine=True``
+appends the cascade's second stage (``models/refine_net.py``) to the
+detect graph: the top ``refine_top_k`` proposals of each frame are cut
+from the normalized frames, re-scored, regressed and re-landmarked, and
+kept where the refined score reaches ``refine_threshold``.
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ from ..device import resolve_device
 from ..models.bridge import load_flax_variables, to_numpy_tree
 from ..models.layers import ensure_eval, init_weights
 from ..models.lite_detector import LiteDetector
+from ..models.mtcnn_lite import MtcnnLiteDetector
+from ..models.refine_net import RefineNet, refine_detections
 from ..models.scrfd import ScrfdDetector
 from ..ops.anchors import STRIDES, all_anchor_centers, decode_boxes, decode_landmarks
 from ..ops.nms import nms_batched
@@ -40,11 +46,12 @@ from ..utils.msgpack import msgpack_restore
 
 _WEIGHTS_DIR = Path(__file__).resolve().parents[2] / "deepfake_vit_tpu" / "weights"
 DEFAULT_WEIGHTS_BY_MODEL = {"scrfd": _WEIGHTS_DIR / "scrfd_synface.msgpack",
+                            "mtcnn": _WEIGHTS_DIR / "mtcnn_lite_synface.msgpack",
+                            "hog": _WEIGHTS_DIR / "hog_synface.msgpack",
                             "lite": _WEIGHTS_DIR / "lite_synface.msgpack",
+                            "refine": _WEIGHTS_DIR / "refine_synface.msgpack",
                             # Not a detector: the packaged classifier the predict CLI loads.
                             "classifier": _WEIGHTS_DIR / "classifier_synface.msgpack"}
-_UNPORTED = ("the mtcnn and hog families and the cascade refinement stage are still to port "
-             "(ROADMAP Queue A item 7)")
 
 
 def default_weights_path(model: str = "scrfd") -> Optional[str]:
@@ -54,17 +61,20 @@ def default_weights_path(model: str = "scrfd") -> Optional[str]:
 
 
 def build_detection_net(model: str = "scrfd", dtype: torch.dtype = torch.float32,
-                        stem_pool: int = 1) -> Union[ScrfdDetector, LiteDetector]:
-    """Detection net factory: 'scrfd' (alias 'retinaface') and 'lite'.
-    ``stem_pool=p`` builds the network that takes p·canvas frames and folds
-    the p× average pool into its first conv."""
+                        stem_pool: int = 1) -> Union[ScrfdDetector, LiteDetector, MtcnnLiteDetector]:
+    """Detection net factory: 'scrfd' (alias 'retinaface'), 'lite' and
+    'mtcnn'. ``stem_pool=p`` builds the network that takes p·canvas frames
+    and folds the p× average pool into its first conv (scrfd and lite;
+    the JAX package has no folded MTCNN-Lite stem either)."""
     if model in ("scrfd", "retinaface"):
         return ScrfdDetector(dtype=dtype, stem_pool=stem_pool)
     if model == "lite":
         return LiteDetector(dtype=dtype, stem_pool=stem_pool)
-    if model in ("mtcnn", "hog", "dlib"):
-        raise NotImplementedError(f"detector {model!r} is not ported yet: {_UNPORTED}; "
-                                  "'scrfd' and 'lite' are")
+    if model == "mtcnn":
+        if stem_pool != 1:
+            raise ValueError(f"the mtcnn family has no pooled stem (stem_pool={stem_pool}): "
+                             "serve it at serving_size == detection_input_size")
+        return MtcnnLiteDetector(dtype=dtype)
     raise ValueError(f"unknown detector model: {model}")
 
 
@@ -110,8 +120,6 @@ class FaceDetector:
         refine_top_k: int = 4,
         device: Optional[Union[str, torch.device]] = None,
     ):
-        if refine:
-            raise NotImplementedError(f"refine=True is not ported yet: {_UNPORTED}")
         self.confidence_threshold = confidence_threshold
         self.nms_threshold = nms_threshold
         self.keep_top_k = keep_top_k
@@ -124,6 +132,13 @@ class FaceDetector:
             load_flax_variables(self.model, to_numpy_tree(params))
         elif pretrained and default_weights_path(model_name):
             self.load_weights(default_weights_path(model_name))
+        self.refiner: Optional[RefineNet] = None
+        self.refine_threshold = refine_threshold
+        self.refine_top_k = refine_top_k
+        if refine:
+            self.refiner = init_weights(RefineNet(), seed + 1).to(self.device).eval()
+            if pretrained and default_weights_path("refine"):
+                self.load_refiner_weights(default_weights_path("refine"))
         centers, strides = all_anchor_centers(self.input_size)
         self._centers = torch.as_tensor(centers, device=self.device)
         self._strides = torch.as_tensor(strides, device=self.device)
@@ -148,8 +163,13 @@ class FaceDetector:
         safe = idx.clamp_min(0)
         rows = torch.arange(boxes.shape[0], device=boxes.device)[:, None]
         sel_scores = scores.gather(1, safe)
-        return {"boxes": boxes[rows, safe], "scores": torch.where(valid, sel_scores, 0.0),
+        dets = {"boxes": boxes[rows, safe], "scores": torch.where(valid, sel_scores, 0.0),
                 "landmarks": landmarks[rows, safe], "valid": valid}
+        if self.refiner is not None:
+            ensure_eval(self.refiner)
+            dets = refine_detections(self.refiner, x, dets, top_k=self.refine_top_k,
+                                     refine_threshold=self.refine_threshold)
+        return dets
 
     # -- host API -----------------------------------------------------------
     def detect_batch_raw(self, images) -> Dict[str, np.ndarray]:
@@ -198,6 +218,12 @@ class FaceDetector:
         """Load detector weights from a flax msgpack state dict."""
         load_flax_variables(self.model, msgpack_restore(path))
 
+    def load_refiner_weights(self, path: str) -> None:
+        """Load the cascade stage's (RefineNet) weights; needs refine=True."""
+        if self.refiner is None:
+            raise ValueError("detector built without refine=True")
+        load_flax_variables(self.refiner, msgpack_restore(path))
+
     @staticmethod
     def get_face_roi(image: np.ndarray, bbox: np.ndarray, margin: float = 0.2) -> np.ndarray:
         """Margin-expanded crop of ``image`` around ``bbox`` (x1, y1, x2, y2)."""
@@ -234,8 +260,15 @@ def create_face_detector(config: Dict[str, Any],
     )
     if model in ("scrfd", "retinaface"):
         det = ScrfdFaceDetector(**kwargs)
-    elif model in ("lite", "mtcnn", "hog", "dlib"):
+    elif model in ("lite", "mtcnn"):
         det = FaceDetector(model_name=model, **kwargs)
+    elif model in ("hog", "dlib"):
+        from ..models.hog_detector import HogFaceDetector
+
+        det = HogFaceDetector(confidence_threshold=kwargs["confidence_threshold"],
+                              nms_threshold=kwargs["nms_threshold"],
+                              keep_top_k=kwargs["keep_top_k"], input_size=kwargs["input_size"],
+                              upsample=int(config.get("upsample", 1)), device=device)
     else:
         raise ValueError(f"unknown detector model: {model}")
     path = scrfd_cfg.get("pretrained_path")

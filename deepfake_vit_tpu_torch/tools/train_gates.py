@@ -9,6 +9,10 @@ configuration at 224² (dropout and drop-connect off):
 - the whole AdamW step on the card in float32 (TF32 off) and in bf16, and
   on the CPU in bf16, each against the CPU's float32 step
   (``compare_steps``);
+- the yardstick of the float32 gate: the card's and the CPU's float32
+  steps each against a float64 step of the same batch on the CPU, whole
+  (``compare_steps``) and leaf by leaf (``leaf_gaps``: the leaves where
+  the card is farthest from float64, with the CPU's gap beside them);
 - the bf16 step piece by piece (``bf16_pieces``) and its controls: every
   convolution's output and gradient at 7, 6 and 5 significant bits, and
   BatchNorm computed in bf16.
@@ -73,9 +77,18 @@ def main(argv=None) -> int:
         want = cs.one_train_step(cfg, torch.float32, "cpu", batch)
         with cs.tf32_off():
             steps = {"card float32": cs.one_train_step(cfg, torch.float32, dev, batch)}
+        f64 = cs.one_train_step(cfg, torch.float64, "cpu", batch)
+        row = {f"float32 vs float64, {k}": cs.compare_steps(v, f64, lr)
+               for k, v in (("card", steps["card float32"]), ("CPU", want))}
+        card_leaf, cpu_leaf = (cs.leaf_gaps(v, f64) for v in (steps["card float32"], want))
+        worst = sorted(card_leaf, key=card_leaf.get, reverse=True)[:5]
+        out.setdefault("leaves", {})[seed] = {k: (card_leaf[k], cpu_leaf[k]) for k in worst}
+        for k in worst:
+            print(f"seed {seed}, leaf {k}: card {card_leaf[k]:.4g}, CPU {cpu_leaf[k]:.4g} "
+                  "of the largest float64 gradient")
         steps["card bf16"] = cs.one_train_step(cfg, torch.bfloat16, dev, batch)
         steps["CPU bf16"] = cs.one_train_step(cfg, torch.bfloat16, "cpu", batch)
-        row = {f"whole step, {k}": cs.compare_steps(v, want, lr) for k, v in steps.items()}
+        row.update({f"whole step, {k}": cs.compare_steps(v, want, lr) for k, v in steps.items()})
         for name, kw in (("bf16", {}), ("7 bits", {"round_bits": 7}),
                          ("6 bits", {"round_bits": 6}), ("5 bits", {"round_bits": 5}),
                          ("BatchNorm in bf16", {"fault": cs.bn_in_input_dtype})):

@@ -6,7 +6,8 @@
 The flags of the JAX package's ``scripts/train.py``, plus ``--device``.
 Seeded end to end from the config (``configs.TRAINING_CONFIG``, the
 JAX package's ``model_config.yaml``, by default): the loaders of
-``{processed_dir}/splits/*.csv``, class weights from the train split, the
+``{processed_dir}/splits/*.csv`` (``DeviceLoader``s onto the run's device,
+or with ``data.cache: device`` the splits kept on it), class weights from the train split, the
 model (bf16 activations when ``training.use_amp``), the optimizer with
 global-norm clipping, the scheduler, the criterion, on-device
 augmentation when ``data.augmentation.enabled``, then ``Trainer.train``
@@ -72,7 +73,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         processed_dir, batch_size=args.batch_size or data_cfg.get("batch_size", 64),
         num_workers=data_cfg.get("num_workers", 4),
         use_landmarks=data_cfg.get("use_landmarks", True), seed=seed,
-        image_size=data_cfg.get("image_size", 224), cache=data_cfg.get("cache"))
+        image_size=data_cfg.get("image_size", 224), cache=data_cfg.get("cache"), device=device)
     if "train" not in loaders:
         log.error(f"no train split found under {processed_dir}/splits")
         return 1

@@ -147,10 +147,11 @@ def test_entry_point_device_and_unported_options(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FusedPipeline(cfg, **COMMON)  # no card and no explicit CPU: never a silent fallback
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mtcnn"):  # MTCNN-Lite has no pooled stem
         FusedPipeline(cfg, device="cpu", detector_arch="mtcnn", **COMMON)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FaceDetector(refine=True, device="cpu")
+    assert FaceDetector(refine=True, input_size=(96, 96), device="cpu").refiner is not None
+    ratio1 = {**COMMON, "detection_input_size": COMMON["serving_size"]}
+    assert FusedPipeline(cfg, device="cpu", detector_arch="mtcnn", **ratio1).detector_arch == "mtcnn"
     with pytest.raises(ValueError, match="scrfd family"):
         FusedPipeline(cfg, device="cpu", use_int8_detector=True, detector_arch="lite", **COMMON)
     with pytest.raises(ValueError, match="warp_tap_mode"):

@@ -71,7 +71,10 @@ def test_import_scan_covers_the_entry_points():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for rel in ("train.py", "evaluate.py", "predict.py", "training/trainer.py",
                 "training/train_state.py", "data/dataset.py", "ops/augment.py",
-                "utils/io_utils.py"):
+                "utils/io_utils.py", "train_detector.py", "data/synth_faces.py",
+                "data/domain_shift.py", "data/splits.py", "data/interface.py",
+                "data/native_loader.py", "models/mtcnn_lite.py", "models/hog_detector.py",
+                "models/refine_net.py", "training/detection.py", "training/refinement.py"):
         assert f"deepfake_vit_tpu_torch/{rel}" in names, rel
 
 

@@ -227,11 +227,17 @@ def test_detector_factory_and_unported_families(det_vars):
     lite = create_face_detector({"model": "lite", "scrfd": {"input_size": [128, 128]}},
                                 device="cpu")
     assert lite.model_name == "lite"
-    for model in ("mtcnn", "hog"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
-            create_face_detector({"model": model}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
-        create_face_detector({"refine": True}, device="cpu")
+    # The families the port once lacked now construct (held to JAX in
+    # tests/test_torch_detectors.py).
+    mtcnn = create_face_detector({"model": "mtcnn", "scrfd": {"input_size": [128, 128]}},
+                                 device="cpu")
+    assert mtcnn.model_name == "mtcnn" and mtcnn.refiner is None
+    for model in ("hog", "dlib"):
+        hog = create_face_detector({"model": model, "scrfd": {"input_size": [96, 96]}},
+                                   device="cpu")
+        assert hog.model_name == "hog" and hog.input_size == (96, 96)
+    assert create_face_detector({"refine": True, "scrfd": {"input_size": [96, 96]}},
+                                device="cpu").refiner is not None
     with pytest.raises(ValueError, match="unknown detector"):
         create_face_detector({"model": "yolo"}, device="cpu")
     seeded = FaceDetector(input_size=(96, 96), pretrained=False, params=det_vars, device="cpu")

@@ -243,8 +243,11 @@ def test_dataset_batches_match_jax(processed):
                     np.testing.assert_allclose(x[k], y[k], rtol=0, atol=1e-6, err_msg=k)
                 else:
                     assert list(x[k]) == list(y[k]), k
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):  # the card, or the CPU by name
         create_dataloaders(processed, cache="device")
+    cached = create_dataloaders(processed, batch_size=4, image_size=S, seed=5, cache="device",
+                                device="cpu")
+    assert type(cached["train"]).__name__ == "CachedDeviceLoader"
 
 
 def _trainer(processed, save_dir, num_epochs, **config):
