@@ -82,15 +82,23 @@
    step of each in turns, one warp launch a step). The native decoder is
    not driven: the H100 machine it was written for has no OpenCV headers
    to build it with.
+   Then the ViT fallback family (ViT-B/16 at 224², full width and depth,
+   seeded): the predictor with the ``hog`` detector and the ViT on the two
+   clips (the 5-frame clip card vs CPU in float32, num_faces equal and
+   fake_prob within PREDICTOR_PROB_TOL; ms a clip in bf16, one warp launch
+   a clip); one AdamW step at batch 4 on the card in float32 without TF32
+   against a float64 step on the CPU within ``TRAIN_LIMITS``; ms a step,
+   images/s and peak memory of the bf16 step at B = 32 (augmentation on,
+   one warp launch a step), twice, beside T's.
 5. Checks each pipeline on the card against the same pipeline on the CPU
    (plain kernel versions, float32) on two frames with drawn faces (three
    faces of different sizes a frame for the multi-face path, two of path
    H's scenes for path H).
-6. Serves nine paths for a few batches at B = 32 and B = 128, twice, in
-   turns (A, B, bf16, C, D, E, F, G, H, then back) — all EfficientNet-B4 at full
-   width and depth (seeded weights), committed detector weights, 320²
-   detection on 640² uint8 frames, bf16 — with every kernel's launch count
-   reset just before and read just after each:
+6. Serves ten paths for a few batches at B = 32 and B = 128, twice, in
+   turns (A, B, bf16, C, D, E, F, G, H, I, then back) — all but I
+   EfficientNet-B4 at full width and depth (seeded weights), committed
+   detector weights, 320² detection on 640² uint8 frames, bf16 — with
+   every kernel's launch count reset just before and read just after each:
    * path A, the headline: int8 detector and int8 tail from block 10 with
      calibrated static scales, fractional window-128 warp, 192² faces;
    * path B, the class default: pooled window-160 warp, 224² faces;
@@ -109,13 +117,22 @@
    * path H, the class default geometry with ``detector_arch="mtcnn"`` and
      the committed MTCNN-Lite weights at a 640² detection canvas (pool
      ratio 1), on drawn scenes whose faces have MTCNN-Lite's training
-     sizes (36-110 px; the CPU's count of frames with a face is printed).
+     sizes (36-110 px; the CPU's count of frames with a face is printed);
+   * path I, path B with ViT-B/16 (224², full width and depth, seeded) in
+     place of the B4: its profile classes the device time by kernel (GEMM,
+     attention softmax, GELU, reductions) and by module (detector, the
+     whole ViT, LayerNorm, attention, the MLP products; ``record_function``
+     ranges from forward hooks), sets the ViT's device time beside its
+     bound (operations at 989 TFLOP/s bf16), and one batch runs under
+     ``utils/profiling.trace``, whose Chrome trace must name the crop and
+     warp kernels.
    Then drives what no pipeline runs: the single-block prototype on two B4
    block shapes, held to the unfused module, and the "uw" warp through
    ``warp_affine_windowed(tap_construction="uw")``, held to "uw16".
 7. Where the serving time goes: one batch per path and size under
    ``torch.profiler`` — device busy time against the batch time (the idle
-   share), device time by kernel class, top kernels.
+   share), device time by kernel class (and, on path I, by module), top
+   kernels.
 
 Prints its wall time, one JSON line with the kernels' numbers, then
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero without a
@@ -177,7 +194,13 @@ EXPECTED = {path: {**dict.fromkeys(KERNEL_NAMES, 0), **counts} for path, counts 
     "F multi-face, lite detector": {"crop_pool": 1, "warp_affine_uw16": 1},
     "G s2d + int8 headline": {**_INT8, "crop_frac": 1, "warp_affine_legacy": 1},
     "H mtcnn detector": {"crop_pool": 1, "warp_affine_legacy": 1},
+    "I ViT-B/16, default pooled warp": {"crop_pool": 1, "warp_affine_legacy": 1},
 }.items()}
+I_PATH = "I ViT-B/16, default pooled warp"
+# The ViT fallback family at the reference's fallback size (HuggingFace
+# ViT-B/16, 224²), full width and depth, seeded.
+VIT_MODEL = {"type": "vit", "feature_extractor": {"variant": "base16", "image_size": 224},
+             "classifier": {"num_classes": 2}}
 # Batch sizes each path is served at (and profiled at, in the first round).
 PATH_BATCHES = {path: (BATCH,) if path.startswith(("D", "F")) else PROFILE_BATCHES
                 for path in EXPECTED}
@@ -383,7 +406,7 @@ def warp_footprint_bytes(coeffs, Hs, Ws, C, out_size) -> int:
 
 
 def build_pipeline(path: str, dtype=torch.bfloat16, device=None, scales=None):
-    """One of the eight served configurations. Paths A, E and G are
+    """One of the ten served configurations. Paths A, E and G are
     calibrated as the JAX benchmark calibrates its headline (8 uniform-noise
     faces, 4 uniform-noise frames, seeded; G's tail on its own s2d
     activations) unless ``scales`` hands the scales over."""
@@ -400,13 +423,14 @@ def build_pipeline(path: str, dtype=torch.bfloat16, device=None, scales=None):
                              output_size=FACE, int8_act_scales=tail_scales,
                              det_act_scales=det_scales, use_s2d_early=path.startswith("G"),
                              warp_tap_mode="int8" if path.startswith("E") else "legacy", **common)
-    elif path.startswith(("B", "D", "F", "H")):  # default warp arguments and face size
+    elif path.startswith(("B", "D", "F", "H", "I")):  # default warp arguments and face size
         extra = (dict(detector_arch="lite", keep_top_k=MULTI_K, warp_tap_mode="uw16")
                  if path.startswith("F") else {})
         if path.startswith("H"):  # MTCNN-Lite serves at a pool ratio of 1: a 640² canvas
             extra = dict(detector_arch="mtcnn")
             common["detection_input_size"] = SERVING
-        pipe = FusedPipeline(MODEL_CONFIG, use_fused_backbone=path.startswith("D"), **extra,
+        config = {"model": VIT_MODEL} if path.startswith("I") else MODEL_CONFIG
+        pipe = FusedPipeline(config, use_fused_backbone=path.startswith("D"), **extra,
                              **common)
         if (pipe.warp_window, pipe.warp_fractional, pipe.output_size) != (
                 POOL_WINDOW, False, POOL_FACE):
@@ -1518,7 +1542,8 @@ def one_train_step(cfg, dtype, dev, batch) -> dict:
     from deepfake_vit_tpu_torch.training import TrainState, make_train_step
 
     model, opt, crit = train_setup(cfg, dtype, dev)
-    model.feature_extractor.backbone.drop_connect_rate = 0.0
+    if hasattr(model, "feature_extractor"):  # a ViT has no drop-connect
+        model.feature_extractor.backbone.drop_connect_rate = 0.0
     p0 = {n: p.detach().to("cpu", torch.float64, copy=True) for n, p in model.named_parameters()}
     metrics = make_train_step(model, crit, opt)(TrainState(), batch, 0)
     out = {"metrics": {k: float(v) for k, v in metrics.items()},
@@ -1536,7 +1561,8 @@ def compare_steps(got: dict, want: dict, lr: float) -> dict:
     vectors; the updates on the elements whose reference gradient is at
     least 1e-3 of the largest (Adam moves the others by float noise's
     sign) as max |Δ| over lr, and the share of them whose update moved the
-    other way; running statistics as max |Δ| over the largest."""
+    other way; running statistics as max |Δ| over the largest (0 for a
+    model without any, as the ViT)."""
     rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
     gmax = max(np.abs(g).max() for g in want["grads"].values())
     g1 = np.concatenate([got["grads"][k].ravel() for k in want["grads"]])
@@ -1544,7 +1570,7 @@ def compare_steps(got: dict, want: dict, lr: float) -> dict:
     big = np.abs(g0) >= 1e-3 * gmax
     du = np.abs(np.concatenate([got["update"][k].ravel() for k in want["grads"]])
                 - np.concatenate([want["update"][k].ravel() for k in want["grads"]]))[big]
-    smax = max(np.abs(s).max() for s in want["batch_stats"].values())
+    smax = max((np.abs(s).max() for s in want["batch_stats"].values()), default=1.0)
     return {
         "loss_rel": rel(got["metrics"]["loss"], want["metrics"]["loss"]),
         "grad_norm_rel": rel(got["metrics"]["grad_norm"], want["metrics"]["grad_norm"]),
@@ -1553,8 +1579,8 @@ def compare_steps(got: dict, want: dict, lr: float) -> dict:
         "grads_l2_rel": float(np.linalg.norm(g1 - g0) / np.linalg.norm(g0)),
         "update_rel": float(du.max() / lr),
         "update_flipped": float((du > lr).mean()),
-        "stats_rel": max(np.abs(got["batch_stats"][k] - s).max()
-                         for k, s in want["batch_stats"].items()) / smax,
+        "stats_rel": max((np.abs(got["batch_stats"][k] - s).max()
+                          for k, s in want["batch_stats"].items()), default=0.0) / smax,
     }
 
 
@@ -2223,6 +2249,212 @@ def loader_phase(kernels, card: str, dev) -> dict:
     return {"ms_per_step": res, "write_s": write_s, "stage_s": stage_s}
 
 
+# The ViT fallback family: path I, the HOG + ViT predictor, the
+# ViT train step.
+VIT_CONFIG = {"patch": 16, "width": 768, "depth": 12, "mlp": 3072}
+# Kernel-name fragments → class for path I's profile, first match wins:
+# cuDNN's convolutions (the detector, the patch embedding) before the
+# GEMMs, whose Hopper kernels carry "xmma"/"nvjet"/"gemm" in their names.
+VIT_KERNEL_CLASSES = (
+    ("host <-> device copy", ("memcpy",)),
+    ("crop_pool (port kernel)", ("crop_pool_band_kernel",)),
+    ("warp_affine_legacy (port kernel)", ("warp_tile_kernel<0>",)),
+    ("convolution (detector, patch embedding)", ("conv", "cudnn", "implicit", "winograd",
+                                                 "fprop", "nhwc", "nchw")),
+    ("GEMM (QKV, QKᵀ, weights·V, projections, MLP)", ("gemm", "nvjet", "cutlass", "xmma",
+                                                       "sm90", "sm80", "cublas")),
+    ("attention softmax", ("softmax",)),
+    ("GELU", ("gelu",)),
+    ("reduction (LayerNorm statistics among them)", ("reduce", "mean", "sum", "max", "norm")),
+    ("copy / layout", ("copy", "cat", "transpose", "permute", "fill", "index", "gather",
+                       "scatter")),
+)
+VIT_TRAIN_BATCH = 4  # the float32 step against float64 (one batch of TRAIN_SEEDS)
+
+
+def vit_flops(batch: int, image: int = 224, classes: int = 2) -> float:
+    """The ViT-B/16 forward's operations (2 per multiply-add): the patch
+    embedding, per block the QKV projection, QKᵀ and weights·V over all
+    heads, the output projection and the two MLP products, the head."""
+    P, W, depth, mlp = (VIT_CONFIG[k] for k in ("patch", "width", "depth", "mlp"))
+    n = (image // P) ** 2
+    L = n + 1
+    block = L * W * 3 * W + 2 * L * L * W + L * W * W + 2 * L * W * mlp
+    return 2.0 * batch * (n * P * P * 3 * W + depth * block + W * classes)
+
+
+def vit_ranges(pipe) -> dict:
+    """Path I's named modules for the profile: the detector, the whole ViT,
+    every LayerNorm, every attention (QKV projection to output projection)
+    and every MLP product (fc1, fc2; the GELU between them is classed by
+    its kernel's name)."""
+    from deepfake_vit_tpu_torch.models.layers import LayerNorm, MultiHeadDotProductAttention
+    from deepfake_vit_tpu_torch.models.vit import EncoderBlock
+
+    named = {pipe.detector: "detector", pipe.model: "ViT-B/16 forward"}
+    for m in pipe.model.modules():
+        if isinstance(m, LayerNorm):
+            named[m] = "LayerNorm"
+        elif isinstance(m, MultiHeadDotProductAttention):
+            named[m] = "attention"
+        elif isinstance(m, EncoderBlock):
+            named[m.fc1] = named[m.fc2] = "MLP products (fc1, fc2)"
+    return named
+
+
+def trace_names_warp(pipe, frames) -> dict:
+    """One batch under ``utils/profiling.trace``: the Chrome trace must name
+    the warp kernel."""
+    import tempfile
+
+    from deepfake_vit_tpu_torch.utils.profiling import annotate, trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            with annotate("path I batch"):
+                pipe.forward(frames)
+        text = (Path(tmp) / "trace.json").read_text()
+    found = {k: k in text for k in ("warp_tile_kernel", "crop_pool_band_kernel", "path I batch")}
+    print(f"path {I_PATH}: utils/profiling.trace of one batch: {len(text) / 2 ** 20:.1f} MiB of "
+          f"Chrome trace, names {found}")
+    if not all(found.values()):
+        fail(f"the trace of path I does not name {[k for k, v in found.items() if not v]}")
+    return {"trace_mib": len(text) / 2 ** 20, **found}
+
+
+def vit_predictor_phase(kernels, dev) -> dict:
+    """The reference's fallback stack on the card: ``detection.model: hog``
+    + ViT-B/16 (seeded, the predictor's seed 0). The 5-frame 1280×720 clip
+    in float32 card vs CPU (num_faces equal, fake_prob within
+    PREDICTOR_PROB_TOL); both clips in bf16 with one warp launch a clip
+    and ms a clip on the host clock."""
+    from deepfake_vit_tpu_torch.configs import PREPROCESSING_CONFIG
+    from deepfake_vit_tpu_torch.inference import DeepfakePredictor
+    from deepfake_vit_tpu_torch.models.vit import ViTClassifier
+
+    config = {**PREPROCESSING_CONFIG,
+              "detection": {**PREPROCESSING_CONFIG["detection"], **DETECTOR_FAMILIES["hog"]}}
+    cfg = {"model": VIT_MODEL}
+    tag = "predictor (hog detector, ViT-B/16)"
+    clips = {name: clip_frames(spec) for name, spec in PREDICTOR_CLIPS.items()}
+    res = {}
+    with tf32_off():
+        card32 = DeepfakePredictor(cfg, config, dtype=torch.float32, device=dev)
+        cpu32 = DeepfakePredictor(cfg, config, dtype=torch.float32, device="cpu")
+        frames = list(clips["1280x720"])
+        got, want = card32.predict_frames(frames), cpu32.predict_frames(frames)
+    err = abs(got["fake_prob"] - want["fake_prob"])
+    print(f"{tag}, 1280x720 clip of {len(frames)} frames: card vs CPU, float32: num_faces "
+          f"{got['num_faces']} / {want['num_faces']}, fake_prob {got['fake_prob']:.5f} / "
+          f"{want['fake_prob']:.5f} (|diff| {err:.5f}, limit {PREDICTOR_PROB_TOL})")
+    if not isinstance(card32.model, ViTClassifier):
+        fail(f"{tag}: the predictor built {type(card32.model).__name__}")
+    if got["num_faces"] != want["num_faces"] or got["num_faces"] == 0:
+        fail(f"{tag}: num_faces {got['num_faces']} on the card, {want['num_faces']} on the CPU")
+    if not err <= PREDICTOR_PROB_TOL:
+        fail(f"{tag}: fake_prob differs by {err} between card and CPU")
+    res["card_vs_cpu_fake_prob_err"] = err
+    del card32, cpu32
+
+    pred = DeepfakePredictor(cfg, config, device=dev)  # bf16
+    for name, frames in clips.items():
+        listed = list(frames)
+        pred.predict_frames(listed)  # warm-up
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        out = pred.predict_frames(listed)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kernels}
+        want = {**dict.fromkeys(KERNEL_NAMES, 0), "warp_affine_legacy": 1}
+        if launches != want:
+            fail(f"{tag}, {name} clip: launches {launches}, expected {want}")
+        if not (out["num_faces"] > 0 and all(math.isfinite(p) for p in out["frame_probs"])):
+            fail(f"{tag}, {name} clip: {out['num_faces']} faces, probabilities "
+                 f"{out['frame_probs']}")
+        t0 = time.perf_counter()
+        for _ in range(PREDICTOR_REPEATS):
+            pred.predict_frames(listed)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / PREDICTOR_REPEATS
+        print(f"{tag} (bf16, seeded), {name} clip of {len(frames)} frames: {ms:.2f} ms a clip on "
+              f"the host clock ({PREDICTOR_REPEATS} clips after one warm-up), "
+              f"{out['num_faces']} faces, fake_prob {out['fake_prob']:.5f}; launches a clip "
+              f"{launches}")
+        res[name] = {"frames": len(frames), "ms_per_clip": ms, "launches_per_clip": launches,
+                     "num_faces": out["num_faces"], "fake_prob": out["fake_prob"]}
+    del pred
+    torch.cuda.empty_cache()
+    return res
+
+
+def vit_training_phase(kernels, card: str, dev, t_rounds: list) -> dict:
+    """The ViT-B/16 train step: one AdamW step at 224², batch 4, on the card
+    in float32 without TF32 against a float64 step on the CPU (one batch of
+    TRAIN_SEEDS, within TRAIN_LIMITS); then ms a step, images/s and peak
+    memory in bf16 at B = 32 (CombinedLoss, AdamW + clip 1.0, augmentation
+    on, one warp launch a step), twice in turns, beside T's B = 32 step of
+    the same call."""
+    import copy
+
+    from deepfake_vit_tpu_torch.configs import TRAINING_CONFIG
+    from deepfake_vit_tpu_torch.ops.augment import make_augment_fn
+    from deepfake_vit_tpu_torch.training import Trainer, create_scheduler
+
+    cfg = copy.deepcopy(TRAINING_CONFIG)
+    cfg["model"] = copy.deepcopy(VIT_MODEL)
+    lr = cfg["training"]["optimizer"]["lr"]
+    batch = train_faces(VIT_TRAIN_BATCH, TRAIN_SEEDS[0])
+    t0 = time.time()
+    f64 = one_train_step(cfg, torch.float64, "cpu", batch)
+    f64_s = time.time() - t0
+    with tf32_off():
+        gaps = compare_steps(one_train_step(cfg, torch.float32, dev, batch), f64, lr)
+    short = {k: float(f"{v:.3g}") for k, v in gaps.items()}
+    print(f"ViT train step, ViT-B/16 at 224², batch {VIT_TRAIN_BATCH} (seed {TRAIN_SEEDS[0]}), "
+          f"card (float32) vs CPU (float64, {f64_s:.1f} s): {short} (limits {TRAIN_LIMITS})")
+    bad = {k: gaps[k] for k, lim in TRAIN_LIMITS.items() if not gaps[k] <= lim}
+    if bad:
+        fail(f"the ViT train step on the card (float32) disagrees with float64: {bad}")
+    del f64
+    torch.cuda.empty_cache()
+
+    cfg["data"]["augmentation"] = dict(LEARN_AUG)
+    model, opt, crit = train_setup(cfg, torch.bfloat16, dev, seed=2)
+    trainer = Trainer(model, opt, crit, [], [], create_scheduler(cfg["training"]["scheduler"], lr),
+                      augment_fn=make_augment_fn(cfg["data"]["augmentation"]), seed=5)
+    faces = train_faces(BATCH, 30 + BATCH)
+    rounds = []
+    for rnd in range(2):
+        trainer.train_step(trainer.state, faces, trainer.seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        losses = [trainer.train_step(trainer.state, faces, trainer.seed)["loss"]
+                  for _ in range(TIMED_STEPS)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = {k.__name__: k.launches for k in kernels}
+        if launches != {**dict.fromkeys(KERNEL_NAMES, 0), "warp_affine_legacy": TIMED_STEPS}:
+            fail(f"ViT training: launches {launches} in {TIMED_STEPS} steps")
+        if not all(math.isfinite(float(v)) for v in losses):
+            fail(f"ViT training: the loss is not finite: {losses}")
+        rounds.append({"round": rnd, "batch": BATCH, "ms_per_step": ms,
+                       "images_per_s": BATCH * 1e3 / ms, "peak_memory_gib": peak})
+        print(f"[{card}] ViT-B/16 training round {rnd}, B = {BATCH}, bf16: {ms:.2f} ms a step, "
+              f"{BATCH * 1e3 / ms:.1f} images/s ({TIMED_STEPS} steps after one warm-up), peak "
+              f"memory {peak:.2f} GiB; one warp launch a step")
+    t_ms = [r["ms_per_step"] for r in t_rounds if r["batch"] == BATCH]
+    print(f"    beside T (B4, B = {BATCH}, same call): {[round(v, 2) for v in t_ms]} ms a step")
+    del trainer, model, opt
+    torch.cuda.empty_cache()
+    return {"float32_vs_float64": gaps, "float64_cpu_s": f64_s, "rounds": rounds,
+            "t_ms_per_step": t_ms}
+
+
 def card_vs_cpu(path: str, frames: np.ndarray, limits: dict) -> dict:
     """The pipeline on the card against the same pipeline on the CPU (plain
     kernel versions), float32 without TF32; path A hands the card's
@@ -2264,39 +2496,77 @@ def serve(pipe, batches):
     return results, time.perf_counter() - t0
 
 
-def classify_kernel(name: str) -> str:
+def classify_kernel(name: str, classes=KERNEL_CLASSES) -> str:
     low = name.lower()
-    for label, keys in KERNEL_CLASSES:
+    for label, keys in classes:
         if any(k in low for k in keys):
             return label
     return "elementwise / other"
 
 
-def profile_batch(pipe, frames, batch_ms: float) -> dict:
-    """One served batch under torch.profiler: device time by kernel."""
+@contextlib.contextmanager
+def module_ranges(named: dict):
+    """A ``record_function`` range named ``named[module]`` around each
+    forward of each module (forward hooks; removed on exit)."""
+    from torch.profiler import record_function
+
+    handles, stack = [], []
+
+    def pre(name):
+        r = record_function(name)
+        r.__enter__()
+        stack.append(r)
+
+    def post(module, args, out):
+        stack.pop().__exit__(None, None, None)
+
+    for module, name in named.items():
+        handles.append(module.register_forward_pre_hook(lambda m, a, name=name: pre(name)))
+        handles.append(module.register_forward_hook(post))
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def profile_batch(pipe, frames, batch_ms: float, classes=KERNEL_CLASSES,
+                  ranges: Optional[dict] = None) -> dict:
+    """One served batch under torch.profiler: device time by kernel and by
+    class; with ``ranges`` ({module: name}), also the device time of the
+    kernels launched inside each named module's forwards (summed per name)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    names = set((ranges or {}).values())
+    with module_ranges(ranges or {}), torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         pipe.forward(frames)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_kernel = defaultdict(float)
+    by_range = defaultdict(float)
     for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        # A range also appears as a device row spanning its kernels: not
+        # device work of its own.
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.key not in names:
             by_kernel[ev.key] += ev.self_device_time_total
+        elif ev.device_type == torch.autograd.DeviceType.CPU and ev.key in names:
+            by_range[ev.key] += ev.device_time_total
     busy_us = sum(by_kernel.values())
     if busy_us <= 0:
         fail("the profiler saw no device time")
     by_class = defaultdict(float)
     for name, us in by_kernel.items():
-        by_class[classify_kernel(name)] += us
-    return {
+        by_class[classify_kernel(name, classes)] += us
+    out = {
         "profiled_wall_us": wall_us, "device_busy_us": busy_us,
         # Against the unprofiled batch time: the profiler slows the host.
         "device_idle_share": max(0.0, 1.0 - busy_us / (batch_ms * 1e3)),
         "device_us_by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
         "top_kernels_us": sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12],
     }
+    if ranges:
+        out["device_us_by_module"] = {name: by_range.get(name, 0.0) for name in sorted(names)}
+    return out
 
 
 def main() -> None:
@@ -2424,6 +2694,9 @@ def main() -> None:
     detector_training = detector_training_phase(kernels, card, dev)
     loaders = loader_phase(kernels, card, dev)
     torch.cuda.empty_cache()
+    # 4g-4h. The ViT fallback family: the HOG + ViT predictor, the ViT train step.
+    vit_predictor = vit_predictor_phase(kernels, dev)
+    vit_training = vit_training_phase(kernels, card, dev, training["rounds"])
 
     # 5. Each pipeline on the card vs on the CPU (plain kernel versions),
     #    float32. Float convolutions differ in the last place between cuDNN
@@ -2462,8 +2735,9 @@ def main() -> None:
     if h_found.sum() < 2:
         fail(f"path {H_PATH}: the detector finds faces in {int(h_found.sum())} scenes")
     card_vs_cpu_err[H_PATH] = card_vs_cpu(H_PATH, h_scenes[np.flatnonzero(h_found)[:2]], tight)
+    card_vs_cpu_err[I_PATH] = card_vs_cpu(I_PATH, faces, tight)
 
-    # 6 + 7. The nine paths, served in turns (A, B, bf16, C, D, E, F, G, H, then back:
+    # 6 + 7. The ten paths, served in turns (A, B, bf16, C, D, E, F, G, H, I, then back:
     #    end-to-end numbers compare only within one call, and the second
     #    round shows what the order does) and profiled once each. The same
     #    seeded batches feed all of them but H, which serves its drawn scenes.
@@ -2477,7 +2751,9 @@ def main() -> None:
     for rnd, order in enumerate((list(EXPECTED), list(EXPECTED)[::-1])):
         for path in order:
             pipe, expected = pipes[path], EXPECTED[path]
-            face, feat = pipe.output_size, pipe.model.feature_extractor.feature_dim
+            face = pipe.output_size
+            feat = (pipe.model.feature_dim if path == I_PATH
+                    else pipe.model.feature_extractor.feature_dim)
             K = pipe.keep_top_k
             served = frames_of[path]
             for bsz in PATH_BATCHES[path]:
@@ -2510,12 +2786,31 @@ def main() -> None:
                 del results
                 if rnd:
                     continue
-                prof = {**res, **profile_batch(pipe, served[bsz][0], batch_ms)}
+                if path == I_PATH:
+                    prof = {**res, **profile_batch(pipe, served[bsz][0], batch_ms,
+                                                   VIT_KERNEL_CLASSES, vit_ranges(pipe))}
+                    vit_ms = prof["device_us_by_module"]["ViT-B/16 forward"] / 1e3
+                    flops = vit_flops(bsz)
+                    prof["vit_bound"] = {"flops": flops, "bound_ms": flops / BF16_OPS_PER_S * 1e3,
+                                         "device_ms": vit_ms}
+                    if bsz == BATCH:
+                        prof["trace"] = trace_names_warp(pipe, served[bsz][0])
+                else:
+                    prof = {**res, **profile_batch(pipe, served[bsz][0], batch_ms)}
                 paths[path]["profile"].append(prof)
                 print(f"    profiled batch: device busy {prof['device_busy_us'] / 1e3:.3f} ms, "
                       f"idle share {prof['device_idle_share']:.3f}")
                 for label, us in prof["device_us_by_class"].items():
                     print(f"    {label:34s} {us / 1e3:8.3f} ms")
+                for label, us in prof.get("device_us_by_module", {}).items():
+                    print(f"    [module] {label:25s} {us / 1e3:8.3f} ms "
+                          f"({us / prof['device_busy_us']:.3f} of busy)")
+                if "vit_bound" in prof:
+                    vb = prof["vit_bound"]
+                    print(f"    ViT-B/16 at B = {bsz}: {vb['flops'] / 1e12:.3f} TFLOP, bound "
+                          f"{vb['bound_ms']:.3f} ms at 989 TFLOP/s bf16; its device time "
+                          f"{vb['device_ms']:.3f} ms "
+                          f"({vb['device_ms'] / vb['bound_ms']:.2f}x the bound)")
                 for name, us in prof["top_kernels_us"][:6]:
                     print(f"    {us / 1e3:8.3f} ms  {name[:100]}")
     proto_launches = drive_prototype(fm, pipes["C fused backbone"].model, dev)
@@ -2599,6 +2894,7 @@ def main() -> None:
              "whole_frame_warp": whole_rows, "preprocessing_pipeline": pipeline,
              "training": training, "predictor_families": families, "detector_bars": bars,
              "detector_training": detector_training, "loaders": loaders,
+             "vit_predictor": vit_predictor, "vit_training": vit_training,
              "torch": torch.__version__, "cuda": torch.version.cuda}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

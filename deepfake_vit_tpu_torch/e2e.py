@@ -26,8 +26,11 @@ stages (``use_fused_backbone``: stem and MBConv blocks through the fused
 kernels, which wins over the int8 tail and the s2d stages when set, as in
 the JAX graph); the space-to-depth early stages (``use_s2d_early``:
 ``models/s2d_early.py``, composing with the int8 tail);
-``compute_quality=False``. The JAX class's ``make_sharded`` has no
-counterpart yet.
+``compute_quality=False``; the ViT classifier family (``model.type:
+vit``) with the warp options, where the fused-backbone, int8-tail and s2d
+options, which act on EfficientNet blocks, raise a ``ValueError`` (the
+JAX class fails there on a missing ``batch_stats`` collection). The JAX
+class's ``make_sharded`` has no counterpart yet.
 """
 
 from __future__ import annotations
@@ -125,6 +128,13 @@ class FusedPipeline:
                              f"expected one of {sorted(WARP_KERNELS)}")
         if keep_top_k < 1:
             raise ValueError(f"keep_top_k must be at least 1, got {keep_top_k}")
+        if model_config.get("model", {}).get("type") == "vit":
+            blocks = [name for name, on in (("use_fused_backbone", use_fused_backbone),
+                                            ("use_int8_tail", use_int8_tail),
+                                            ("use_s2d_early", use_s2d_early)) if on]
+            if blocks:
+                raise ValueError(f"{', '.join(blocks)} act on EfficientNet blocks; "
+                                 "a ViT classifier takes none of them")
         self.device = resolve_device(device)
         self.dtype = dtype
         self.input_size = tuple(detection_input_size)
@@ -197,7 +207,7 @@ class FusedPipeline:
         ``detector_weights="default"`` loads the committed weights of the
         pipeline's detector family (None keeps the seeded init);
         ``classifier_checkpoint`` is a framework checkpoint (msgpack with
-        ``params``/``batch_stats``).
+        ``params`` and, but for a ViT, ``batch_stats``).
         """
         self.init_variables(seed)
         if detector_weights == "default":
@@ -205,7 +215,7 @@ class FusedPipeline:
         if classifier_checkpoint:
             ckpt = msgpack_restore(classifier_checkpoint)
             load_flax_variables(self.model, {"params": ckpt["params"],
-                                             "batch_stats": ckpt["batch_stats"]})
+                                             "batch_stats": ckpt.get("batch_stats", {})})
         if detector_weights:
             load_flax_variables(self.detector, msgpack_restore(detector_weights))
         self.build_runners()
@@ -222,14 +232,16 @@ class FusedPipeline:
         """(Re)build the fused-backbone, s2d and int8 runners from the networks'
         current weights and the stored activation scales: BatchNorm folding
         and weight quantization happen here, once, not in ``forward``."""
-        backbone = self.model.feature_extractor.backbone
         if self.use_fused_backbone:
-            self._fused = FusedBackboneRunner(backbone, image_size=self.output_size[0])
+            self._fused = FusedBackboneRunner(self.model.feature_extractor.backbone,
+                                              image_size=self.output_size[0])
         else:  # the fused backbone wins over both
             if self.use_s2d_early:
-                self._s2d = S2DEarlyRunner(backbone, image_size=self.output_size[0])
+                self._s2d = S2DEarlyRunner(self.model.feature_extractor.backbone,
+                                           image_size=self.output_size[0])
             if self.use_int8_tail:
-                self._tail = Int8TailRunner(backbone, start_block=self._tail_start,
+                self._tail = Int8TailRunner(self.model.feature_extractor.backbone,
+                                            start_block=self._tail_start,
                                             act_scales=self.int8_act_scales)
         if self.use_int8_detector:
             self._det_int8 = ScrfdInt8Runner(self.detector, act_scales=self.det_act_scales,

@@ -9,23 +9,23 @@ loads the checkpoint's ``params`` and ``batch_stats`` (a file written by
 either package's trainer), evaluates the split with the full metric
 suite, with ``--detailed`` adds per-class accuracy and accuracy/coverage
 at confidence 0.5/0.7/0.9, and writes ``eval_{split}.json`` and
-``predictions_{split}.npz`` under ``--output-dir``. ``--visualize`` (the
-prediction grid) is not ported (ROADMAP Queue A item 9). Runs on the card
-unless ``--device cpu`` is given; without a card it fails.
+``predictions_{split}.npz`` under ``--output-dir``; ``--visualize`` also
+writes ``eval_grid_{split}.png``, the first batch's images (up to 16)
+captioned with their labels and predictions. ``model.type: vit``
+evaluates a ViT checkpoint, which the JAX CLI cannot (it reads a
+``batch_stats`` collection a ViT does not have). Runs on the card unless
+``--device cpu`` is given; without a card it fails.
 """
 
 from __future__ import annotations
 
 import argparse
-import logging
 import sys
 from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 import torch
-
-log = logging.getLogger("evaluate")
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -38,14 +38,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--output-dir", type=str, default="outputs")
     parser.add_argument("--detailed", action="store_true")
     parser.add_argument("--visualize", action="store_true",
-                        help="not ported (ROADMAP Queue A item 9)")
+                        help="write a grid of the first batch with labels and predictions")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the card; 'cpu' runs the plain versions)")
     args = parser.parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
-    if args.visualize:
-        raise NotImplementedError("--visualize: the visualization utilities are not ported "
-                                  "(ROADMAP Queue A item 9)")
 
     from .data import create_dataloaders
     from .device import resolve_device
@@ -54,7 +50,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     from .train import load_run_config
     from .training import Evaluator, make_criterion
     from .utils.io_utils import load_checkpoint, save_metrics
+    from .utils.logger import setup_logger
 
+    log = setup_logger("evaluate")
     device = resolve_device(args.device)
     config = load_run_config(args.config)
     data_cfg = config.get("data", {})
@@ -100,6 +98,15 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
+    if args.visualize:
+        from .utils.visualization import visualize_batch
+
+        first = next(iter(loader))
+        n = min(len(preds), 16)
+        visualize_batch(np.asarray(torch.as_tensor(first["image"]).float().cpu())[:n],
+                        labels=labels[:n], predictions=preds[:n],
+                        save_path=out_dir / f"eval_grid_{args.split}.png")
+        log.info(f"wrote {out_dir}/eval_grid_{args.split}.png")
     save_metrics({k: v for k, v in metrics.items() if isinstance(v, (int, float, list))},
                  out_dir / f"eval_{args.split}.json")
     np.savez(out_dir / f"predictions_{args.split}.npz", preds=preds, probs=probs, labels=labels)

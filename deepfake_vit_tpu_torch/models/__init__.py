@@ -3,10 +3,12 @@
 
 from .feature_extractor import DeepfakeDetectionModel, create_model_from_config
 from .scrfd import ScrfdDetector, fold_stem_pool_params
+from .vit import ViTClassifier
 
 __all__ = [
     "DeepfakeDetectionModel",
     "ScrfdDetector",
+    "ViTClassifier",
     "create_model_from_config",
     "fold_stem_pool_params",
 ]

@@ -9,6 +9,13 @@ child module, and at a leaf layer (``Conv``, ``Dense``, ``BatchNorm``,
 kernels to OIHW, depthwise (k, k, 1, C) to (C, 1, k, k), Dense (in, out)
 to (out, in), BN scale/bias/mean/var to parameters and buffers.
 
+A module that is not a layer may hold parameters of its own that flax
+keeps as bare arrays beside its submodules (the ViT's ``cls_token`` and
+``pos_embed``): it names them in ``FLAX_PARAMS``, and they are copied as
+they are, shape checked. A layer whose subtree holds nodes names
+its keys in ``FLAX_KEYS`` (the attention's ``query``/``key``/``value``/
+``out``).
+
 Loading is strict: every leaf of the tree must land in the module and
 every parameter and buffer of the module must be set.
 ``export_flax_variables`` is the inverse walk: each leaf layer writes its
@@ -20,6 +27,8 @@ from __future__ import annotations
 
 from typing import Any, Mapping
 
+import numpy as np
+import torch
 import torch.nn as nn
 
 
@@ -32,7 +41,7 @@ def _is_tree(x: Any) -> bool:
 
 def _load(module: nn.Module, params: Mapping, stats: Mapping, path: str, loaded: set) -> None:
     if hasattr(module, "load_flax"):
-        extra = set(params) - _LAYER_LEAVES
+        extra = set(params) - getattr(module, "FLAX_KEYS", _LAYER_LEAVES)
         if extra:
             raise KeyError(f"unexpected flax leaves under {path}: {sorted(extra)}")
         module.load_flax(params, stats)
@@ -41,7 +50,17 @@ def _load(module: nn.Module, params: Mapping, stats: Mapping, path: str, loaded:
         return
     for key, sub in params.items():
         if not _is_tree(sub):
-            raise KeyError(f"flax leaf {path}{key} has no layer in {type(module).__name__}")
+            own = getattr(module, key) if key in getattr(module, "FLAX_PARAMS", ()) else None
+            if own is None:
+                raise KeyError(f"flax leaf {path}{key} has no layer in {type(module).__name__}")
+            value = torch.from_numpy(np.array(sub, dtype=np.float32))
+            if tuple(value.shape) != tuple(own.shape):
+                raise ValueError(f"{path}{key}: shape {tuple(value.shape)} does not match "
+                                 f"{tuple(own.shape)}")
+            with torch.no_grad():
+                own.copy_(value.to(own.device, own.dtype))
+            loaded.add(f"{path}{key}")
+            continue
         child = getattr(module, key, None)
         if not isinstance(child, nn.Module):
             raise KeyError(f"flax node {path}{key} has no submodule in {type(module).__name__}")
@@ -71,7 +90,9 @@ def _export(module: nn.Module, path: str, written: set):
         written.update(f"{path}{k}" for k, _ in module.named_parameters(recurse=False))
         written.update(f"{path}{k}" for k, _ in module.named_buffers(recurse=False))
         return params, stats
-    params: dict = {}
+    params: dict = {k: getattr(module, k).detach().float().cpu().numpy()
+                    for k in getattr(module, "FLAX_PARAMS", ())}
+    written.update(f"{path}{k}" for k in params)
     stats: dict = {}
     for key, child in module.named_children():
         p, s = _export(child, f"{path}{key}.", written)

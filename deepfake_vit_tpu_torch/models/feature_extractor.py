@@ -97,19 +97,31 @@ class DeepfakeDetectionModel(nn.Module):
 
 
 def create_model_from_config(model_cfg: Dict[str, Any],
-                             dtype: torch.dtype = torch.float32) -> DeepfakeDetectionModel:
-    """Build the classifier from the model config's 'model' block
-    (efficientnet family; the ViT family is not ported): the head's
-    ``classifier.dropout_rate``, the features' ``feature_extractor.dropout_rate``
-    and ``freeze_bn`` as the JAX function reads them. Serving objects put
-    the model in eval mode; a trainer calls ``train()``."""
-    if model_cfg.get("type", "efficientnet") != "efficientnet":
-        raise NotImplementedError(
-            f"model type {model_cfg.get('type')!r} is not ported; only 'efficientnet' is"
-        )
+                             dtype: torch.dtype = torch.float32) -> nn.Module:
+    """Build the classifier from the model config's 'model' block.
+
+    ``type: efficientnet`` (the default) builds a ``DeepfakeDetectionModel``:
+    the head's ``classifier.dropout_rate``, the features'
+    ``feature_extractor.dropout_rate`` and ``freeze_bn`` as the JAX
+    function reads them. ``type: vit`` builds the fallback
+    ``ViTClassifier`` from ``feature_extractor.{variant, image_size,
+    dropout_rate}`` (defaults base16, 224, 0.0) and
+    ``classifier.num_classes``. Both return ``(logits, features)``.
+    Serving objects put the model in eval mode; a trainer calls
+    ``train()``."""
+    kind = model_cfg.get("type", "efficientnet")
     fe = model_cfg.get("feature_extractor", {})
-    attn = fe.get("attention_config", {}) or {}
     clf = model_cfg.get("classifier", {})
+    if kind == "vit":
+        from .vit import ViTClassifier
+
+        return ViTClassifier(variant=fe.get("variant", "base16"),
+                             num_classes=clf.get("num_classes", 2),
+                             image_size=int(fe.get("image_size", 224)),
+                             dropout=float(fe.get("dropout_rate", 0.0)), dtype=dtype)
+    if kind != "efficientnet":
+        raise ValueError(f"unknown model type {kind!r}; expected 'efficientnet' or 'vit'")
+    attn = fe.get("attention_config", {}) or {}
     return DeepfakeDetectionModel(
         num_classes=clf.get("num_classes", 2),
         variant=fe.get("variant", "b4"),

@@ -1,5 +1,5 @@
-"""Flax-compatible building blocks: Conv, Dense, BatchNorm, Dropout and
-drop-connect.
+"""Flax-compatible building blocks: Conv, Dense, BatchNorm, LayerNorm,
+MultiHeadDotProductAttention, Dropout and drop-connect.
 
 Parameters are kept in float32 (flax's ``param_dtype``) and cast to the
 activation dtype at use, as flax's ``dtype`` does; BatchNorm normalizes in
@@ -7,7 +7,9 @@ float32 and returns the input dtype. Convolutions run NCHW. Each layer
 loads its flax subtree (``load_flax``), writes it back (``export_flax``)
 and initializes itself the way the flax default initializers do
 (``reset_parameters`` with a ``torch.Generator``), so the bridge and the
-seeded init stay mechanical.
+seeded init stay mechanical. A layer whose flax subtree holds nodes
+rather than arrays names its keys in ``FLAX_KEYS`` (the attention's
+``query``/``key``/``value``/``out``).
 
 Train mode follows flax's ``train=True``: BatchNorm normalizes with the
 batch's statistics and moves its running ones, Dropout and drop-connect
@@ -200,6 +202,117 @@ class BatchNorm(nn.Module):
         nn.init.zeros_(self.bias)
         self.running_mean.zero_()
         self.running_var.fill_(1.0)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm`` over the last dim: the statistics in float32
+    (float64 for float64 inputs) as flax's ``_compute_stats`` takes them
+    (mean and E[x²] − E[x]², clipped at 0), ``(x − mean) · (rsqrt(var +
+    eps) · scale) + bias`` in that precision, returned in the input dtype."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+    def load_flax(self, params: Dict[str, Any], stats: Dict[str, Any]) -> None:
+        _copy_checked(self.weight, _as_tensor(params["scale"]), "LayerNorm.scale")
+        _copy_checked(self.bias, _as_tensor(params["bias"]), "LayerNorm.bias")
+
+    def export_flax(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        return {"scale": _numpy(self.weight), "bias": _numpy(self.bias)}, {}
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """flax ``nn.MultiHeadDotProductAttention`` self-attention on (B, L, W),
+    as flax 0.12's ``dot_product_attention_weights`` computes it: the query
+    divided by √hd before QKᵀ, the softmax's result in the activation
+    dtype (``force_fp32_for_softmax=False``; ``torch.softmax`` rounds once
+    where XLA also rounds the exponentials and their sum), one dropout mask
+    of shape (L, L) broadcast over batch and heads (``broadcast_dropout``),
+    the weights times V, then the output projection.
+
+    The query, key and value projections are one (3W, W) GEMM: flax's
+    ``query``/``key``/``value`` kernels (W, H, hd) and biases (H, hd) are
+    stacked on load and split again on export; ``out``'s kernel is
+    (H, hd, W)."""
+
+    FLAX_KEYS = frozenset({"query", "key", "value", "out"})
+
+    def __init__(self, width: int, heads: int, dropout_rate: float = 0.0):
+        super().__init__()
+        if width % heads:
+            raise ValueError(f"width {width} is not a multiple of {heads} heads")
+        self.width, self.heads, self.dropout_rate = width, heads, dropout_rate
+        self.qkv_weight = nn.Parameter(torch.empty(3 * width, width))
+        self.qkv_bias = nn.Parameter(torch.zeros(3 * width))
+        self.out_weight = nn.Parameter(torch.empty(width, width))
+        self.out_bias = nn.Parameter(torch.zeros(width))
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        B, L, W = x.shape
+        H, dt = self.heads, x.dtype
+        hd = W // H
+        qkv = F.linear(x, self.qkv_weight.to(dt), self.qkv_bias.to(dt))
+        q, k, v = qkv.view(B, L, 3, H, hd).permute(2, 0, 3, 1, 4)  # each (B, H, L, hd)
+        q = q / torch.tensor(math.sqrt(hd), dtype=dt, device=x.device)
+        weights = torch.softmax(q @ k.transpose(-1, -2), dim=-1)  # (B, H, L, L)
+        if self.training and self.dropout_rate > 0.0:
+            keep = 1.0 - self.dropout_rate
+            mask = keep_mask((L, L), keep, x, generator).to(dt)
+            weights = weights * (mask / torch.tensor(keep, dtype=dt, device=x.device))
+        o = (weights @ v).transpose(1, 2).reshape(B, L, W)
+        return F.linear(o, self.out_weight.to(dt), self.out_bias.to(dt))
+
+    def load_flax(self, params: Dict[str, Any], stats: Dict[str, Any]) -> None:
+        W = self.width
+        kernels = [_as_tensor(params[n]["kernel"]) for n in ("query", "key", "value")]
+        for n, k in zip(("query", "key", "value"), kernels):
+            if tuple(k.shape) != (W, self.heads, W // self.heads):
+                raise ValueError(f"attention {n}.kernel: shape {tuple(k.shape)} does not match "
+                                 f"{(W, self.heads, W // self.heads)}")
+        _copy_checked(self.qkv_weight, torch.cat([k.reshape(W, W).t() for k in kernels]),
+                      "attention qkv kernel")
+        _copy_checked(self.qkv_bias, torch.cat([_as_tensor(params[n]["bias"]).reshape(W)
+                                                for n in ("query", "key", "value")]),
+                      "attention qkv bias")
+        out = _as_tensor(params["out"]["kernel"])
+        if tuple(out.shape) != (self.heads, W // self.heads, W):
+            raise ValueError(f"attention out.kernel: shape {tuple(out.shape)} does not match "
+                             f"{(self.heads, W // self.heads, W)}")
+        _copy_checked(self.out_weight, out.reshape(W, W).t(), "attention out kernel")
+        _copy_checked(self.out_bias, _as_tensor(params["out"]["bias"]), "attention out bias")
+
+    def export_flax(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        W, H = self.width, self.heads
+        params = {}
+        for i, n in enumerate(("query", "key", "value")):
+            rows = slice(i * W, (i + 1) * W)
+            params[n] = {"kernel": _numpy(self.qkv_weight[rows].t()).reshape(W, H, W // H),
+                         "bias": _numpy(self.qkv_bias[rows]).reshape(H, W // H)}
+        params["out"] = {"kernel": _numpy(self.out_weight.t()).reshape(H, W // H, W),
+                         "bias": _numpy(self.out_bias)}
+        return params, {}
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        # flax's DenseGeneral draws each kernel on its flattened (W, W)
+        # shape: lecun-normal with fan-in W.
+        lecun_normal_(self.qkv_weight, self.width, generator)
+        lecun_normal_(self.out_weight, self.width, generator)
+        nn.init.zeros_(self.qkv_bias)
+        nn.init.zeros_(self.out_bias)
 
 
 @contextlib.contextmanager

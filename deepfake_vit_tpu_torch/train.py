@@ -13,24 +13,26 @@ global-norm clipping, the scheduler, the criterion, on-device
 augmentation when ``data.augmentation.enabled``, then ``Trainer.train``
 with rotating checkpoints and ``best_model.ckpt`` under
 ``checkpoint.save_dir``, and a final evaluation on the test split when
-there is one. ``--resume`` continues a checkpoint this CLI wrote. Runs on
-the card unless ``--device cpu`` is given; without a card it fails.
-The TensorBoard files the JAX CLI writes are not (ROADMAP Queue A item 9).
+there is one. ``--resume`` continues a checkpoint this CLI wrote. It logs
+to the console and to ``{logging.log_dir}/train.log`` and writes
+TensorBoard event files under ``{logging.log_dir}/tb``, as the JAX CLI
+does. ``model.type: vit`` trains the ViT fallback family, which the JAX
+CLI cannot (it reads a ``batch_stats`` collection a ViT does not have).
+Runs on the card unless ``--device cpu`` is given; without a card it
+fails.
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
-import logging
 import random
 import sys
+from pathlib import Path
 from typing import List, Optional
 
 import numpy as np
 import torch
-
-log = logging.getLogger("train")
 
 
 def load_run_config(path: Optional[str]):
@@ -51,7 +53,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the card; 'cpu' runs the plain versions)")
     args = parser.parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(name)s: %(message)s")
 
     from .data import create_dataloaders
     from .device import resolve_device
@@ -59,9 +60,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     from .models.layers import init_weights
     from .ops.augment import make_augment_fn
     from .training import (Trainer, create_optimizer, create_scheduler, make_criterion)
+    from .utils.io_utils import count_parameters
+    from .utils.logger import setup_logger
 
     device = resolve_device(args.device)
     config = load_run_config(args.config)
+    log_dir = Path(config.get("logging", {}).get("log_dir", "runs"))
+    log = setup_logger("train", str(log_dir / "train.log"))
     seed = int(config.get("seed", 42))
     np.random.seed(seed)
     random.seed(seed)
@@ -84,7 +89,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     dtype = torch.bfloat16 if train_cfg.get("use_amp", True) else torch.float32
     model = init_weights(create_model_from_config(config.get("model", {}), dtype=dtype), seed)
     model.to(device)
-    log.info(f"model params: {sum(p.numel() for p in model.parameters()):,}")
+    log.info(f"model params: {count_parameters(model):,}")
     opt_cfg = train_cfg.get("optimizer", {})
     optimizer = create_optimizer(model.parameters(), opt_cfg,
                                  gradient_clip=train_cfg.get("gradient_clip"))
@@ -113,6 +118,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             "save_dir": ckpt_cfg.get("save_dir", "checkpoints"),
             "max_keep": ckpt_cfg.get("max_keep", 5),
             "save_best_only": ckpt_cfg.get("save_best_only", False),
+            "tb_dir": str(log_dir / "tb"),
         })
     start_epoch = trainer.resume_from_checkpoint(args.resume) if args.resume else 0
     trainer.train(start_epoch)

@@ -30,6 +30,7 @@ import torch.nn as nn
 
 from ..models.bridge import export_flax_variables, load_flax_variables
 from ..utils.io_utils import load_checkpoint, save_checkpoint
+from ..utils.tb_writer import SummaryWriter
 from .evaluator import Evaluator, MetricsTracker
 from .optim import LRScheduler, get_learning_rate, load_optimizer_state, optimizer_state_tree
 from .optim import set_learning_rate
@@ -66,8 +67,11 @@ def _rss_mb() -> float:
 
 class Trainer:
     """``seed`` seeds the masks and the augmentation of every step (with
-    the step's number). ``config['tb_dir']`` asks for TensorBoard event
-    files, whose writer is not ported (ROADMAP Queue A item 9)."""
+    the step's number). ``config['tb_dir']`` writes TensorBoard event files
+    there (``utils/tb_writer.py``): per epoch the scalars the JAX trainer
+    writes (``train/loss``, ``train/accuracy``, ``val/loss``,
+    ``val/accuracy``, ``val/roc_auc``, ``lr``, ``host/rss_mb``) at step
+    epoch + 1."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer, criterion: Callable,
                  train_loader: Iterable, val_loader: Iterable,
@@ -82,9 +86,7 @@ class Trainer:
         self.scheduler = scheduler
         self.logger = logger
         self.config = {**_DEFAULTS, **(config or {})}
-        if self.config.get("tb_dir"):
-            raise NotImplementedError("TensorBoard event files (tb_dir): the writer is not "
-                                      "ported (ROADMAP Queue A item 9)")
+        self.tb = SummaryWriter(self.config["tb_dir"]) if self.config.get("tb_dir") else None
         self.seed = int(seed)
         self.state = TrainState()
         self.train_step = make_train_step(
@@ -143,13 +145,25 @@ class Trainer:
             if is_best or (periodic and not self.config["save_best_only"]):
                 self.save_checkpoint(epoch, is_best=is_best)
 
+            rss = _rss_mb()
+            if self.tb is not None:
+                self.tb.add_scalars({
+                    "train/loss": train_metrics["loss"],
+                    "train/accuracy": train_metrics["accuracy"],
+                    "val/loss": val_metrics["loss"],
+                    "val/accuracy": val_metrics["accuracy"],
+                    "val/roc_auc": val_metrics.get("roc_auc", float("nan")),
+                    "lr": lr if lr is not None else float("nan"),
+                    "host/rss_mb": rss,
+                }, step=epoch + 1)
+                self.tb.flush()
             self._log(
                 f"[epoch {epoch + 1}/{num_epochs}] "
                 f"train_loss={train_metrics['loss']:.4f} train_acc={train_metrics['accuracy']:.4f} "
                 f"val_loss={val_metrics['loss']:.4f} val_acc={val_metrics['accuracy']:.4f} "
                 f"val_auc={val_metrics.get('roc_auc', float('nan')):.4f} "
                 f"lr={lr if lr is not None else float('nan'):.2e} "
-                f"rss={_rss_mb():.0f}MB ({train_metrics['epoch_time_s']:.1f}s)"
+                f"rss={rss:.0f}MB ({train_metrics['epoch_time_s']:.1f}s)"
                 + (" *best*" if is_best else "")
             )
             if self._early_stopping(val_metrics["loss"]):
@@ -157,6 +171,8 @@ class Trainer:
                 break
 
         self._log(f"training done in {time.perf_counter() - total_t0:.1f}s")
+        if self.tb is not None:
+            self.tb.close()
         self.tracker.summary(self.logger)
         return self.tracker
 

@@ -1,23 +1,28 @@
 """Config, metrics and checkpoint files.
 
-Counterpart of the JAX package's ``utils/io_utils.py`` (its JSON/YAML
-config readers, ``save_metrics`` and the checkpoint functions): a
+Counterpart of the JAX package's ``utils/io_utils.py``: JSON, YAML and
+pickle round trips, config files by suffix, ``save_metrics``, parameter
+counts, and the checkpoint functions. A
 checkpoint is the flax msgpack file the JAX package writes
 (``utils/msgpack.py``), saved atomically (``.tmp`` then rename), copied to
 ``best_model.ckpt`` when it is the best, and rotated by mtime keeping the
 newest ``max_keep`` ``checkpoint_epoch_*.ckpt``. Either package reads the
-other's files. YAML needs PyYAML, imported only when a YAML file is read.
+other's files. YAML needs PyYAML, imported only when a YAML file is read
+or written. Pickle files run code when they are read: load only files this
+program wrote.
 """
 
 from __future__ import annotations
 
 import json
+import pickle
 import shutil
 import time
 from pathlib import Path
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
+import torch.nn as nn
 
 from .msgpack import msgpack_restore, msgpack_serialize
 
@@ -57,17 +62,77 @@ def save_json(data: Any, path: PathLike, indent: int = 2) -> None:
         json.dump(data, f, indent=indent, ensure_ascii=False, default=_json_default)
 
 
+def get_project_root() -> Path:
+    """The repository root: two levels above this package's modules."""
+    return Path(__file__).resolve().parents[2]
+
+
+def load_yaml(path: PathLike) -> Any:
+    import yaml
+
+    with open(path, "r", encoding="utf-8") as f:
+        return yaml.safe_load(f)
+
+
+def save_yaml(data: Any, path: PathLike) -> None:
+    import yaml
+
+    path = Path(path)
+    ensure_dir(path.parent)
+    with open(path, "w", encoding="utf-8") as f:
+        yaml.safe_dump(data, f, sort_keys=False, allow_unicode=True)
+
+
+def load_pickle(path: PathLike) -> Any:
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def save_pickle(data: Any, path: PathLike) -> None:
+    path = Path(path)
+    ensure_dir(path.parent)
+    with open(path, "wb") as f:
+        pickle.dump(data, f, protocol=pickle.HIGHEST_PROTOCOL)
+
+
 def load_config(path: PathLike) -> Dict[str, Any]:
     """Load a config file, dispatching on suffix (.yaml/.yml/.json)."""
     path = Path(path)
     if path.suffix in (".yaml", ".yml"):
-        import yaml
-
-        with open(path, "r", encoding="utf-8") as f:
-            return yaml.safe_load(f)
+        return load_yaml(path)
     if path.suffix == ".json":
         return load_json(path)
     raise ValueError(f"unsupported config format: {path.suffix}")
+
+
+def save_config(config: Dict[str, Any], path: PathLike) -> None:
+    """Write a config file, dispatching on suffix (.yaml/.yml/.json)."""
+    path = Path(path)
+    if path.suffix in (".yaml", ".yml"):
+        save_yaml(config, path)
+    elif path.suffix == ".json":
+        save_json(config, path)
+    else:
+        raise ValueError(f"unsupported config format: {path.suffix}")
+
+
+def count_parameters(module: nn.Module, trainable_only: bool = True) -> int:
+    """The number of scalar parameters of ``module`` (those that require a
+    gradient when ``trainable_only``); buffers such as BatchNorm's running
+    statistics are not parameters, as in the JAX count of a params tree."""
+    return int(sum(p.numel() for p in module.parameters()
+                   if p.requires_grad or not trainable_only))
+
+
+def print_model_info(module: nn.Module, name: str = "model", logger=None) -> Dict[str, Any]:
+    """Log the parameter count and the float32 / bf16 sizes; returns them."""
+    n = count_parameters(module)
+    info = {"name": name, "total_params": n, "size_mb_fp32": n * 4 / 1024 / 1024,
+            "size_mb_bf16": n * 2 / 1024 / 1024}
+    (logger.info if logger else print)(
+        f"{name}: {n:,} params ({info['size_mb_fp32']:.1f} MB fp32 / "
+        f"{info['size_mb_bf16']:.1f} MB bf16)")
+    return info
 
 
 def save_metrics(metrics: Dict[str, Any], path: PathLike, append: bool = True) -> None:
@@ -157,5 +222,7 @@ def latest_checkpoint(save_dir: PathLike) -> Optional[Path]:
     return ckpts[-1] if ckpts else None
 
 
-__all__ = ["BEST_NAME", "CKPT_SUFFIX", "ensure_dir", "latest_checkpoint", "load_checkpoint",
-           "load_config", "load_json", "save_checkpoint", "save_json", "save_metrics"]
+__all__ = ["BEST_NAME", "CKPT_SUFFIX", "count_parameters", "ensure_dir", "get_project_root",
+           "latest_checkpoint", "load_checkpoint", "load_config", "load_json", "load_pickle",
+           "load_yaml", "print_model_info", "save_checkpoint", "save_config", "save_json",
+           "save_metrics", "save_pickle", "save_yaml"]

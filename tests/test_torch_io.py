@@ -74,7 +74,10 @@ def test_import_scan_covers_the_entry_points():
                 "utils/io_utils.py", "train_detector.py", "data/synth_faces.py",
                 "data/domain_shift.py", "data/splits.py", "data/interface.py",
                 "data/native_loader.py", "models/mtcnn_lite.py", "models/hog_detector.py",
-                "models/refine_net.py", "training/detection.py", "training/refinement.py"):
+                "models/refine_net.py", "training/detection.py", "training/refinement.py",
+                "convert_checkpoint.py", "models/vit.py", "models/classifier.py",
+                "models/convert.py", "utils/logger.py", "utils/profiling.py",
+                "utils/tb_writer.py", "utils/visualization.py"):
         assert f"deepfake_vit_tpu_torch/{rel}" in names, rel
 
 

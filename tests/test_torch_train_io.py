@@ -84,6 +84,7 @@ def _run_config(tmp, **overrides):
     cfg["training"]["use_amp"] = False
     cfg["validation"]["save_freq"] = 1
     cfg["checkpoint"]["save_dir"] = str(tmp / "ckpt")
+    cfg["logging"]["log_dir"] = str(tmp / "runs")
     for k, v in overrides.items():
         cfg[k].update(v)
     path = tmp / "model.json"
@@ -306,8 +307,10 @@ def test_early_stopping_counts_and_min_delta(processed, tmp_path):
     assert Evaluator(t.model, t.criterion).evaluate([]) == {"loss": pytest.approx(np.nan,
                                                                                   nan_ok=True),
                                                             "num_samples": 0}
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        _trainer(processed, tmp_path, 1, tb_dir=str(tmp_path / "tb"))
+    assert t.tb is None
+    t3 = _trainer(processed, tmp_path, 1, tb_dir=str(tmp_path / "tb"))
+    assert t3.tb is not None and t3.tb.path.parent == tmp_path / "tb"
+    t3.tb.close()
 
 
 def test_clis_train_resume_evaluate_on_the_cpu(processed, tmp_path):
@@ -316,6 +319,8 @@ def test_clis_train_resume_evaluate_on_the_cpu(processed, tmp_path):
     common = ["--config", str(cfg_path), "--processed-dir", str(processed)]
     assert train_cli.main(common + ["--device", "cpu"]) == 0
     ckpt_dir = tmp_path / "ckpt"
+    assert "epoch 2/2" in (tmp_path / "runs" / "train.log").read_text()
+    assert len(list((tmp_path / "runs" / "tb").glob("events.out.tfevents.*"))) == 1
     names = sorted(p.name for p in ckpt_dir.iterdir())
     assert "best_model.ckpt" in names and "checkpoint_epoch_0001.ckpt" in names
     assert train_cli.main(common + ["--device", "cpu", "--epochs", "3", "--resume",
@@ -346,5 +351,6 @@ def test_clis_need_a_card_unless_told_cpu(processed, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         evaluate_cli.main(["--checkpoint", "x.ckpt", "--config", str(cfg_path),
                            "--processed-dir", str(processed)])
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        evaluate_cli.main(["--checkpoint", "x.ckpt", "--visualize", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate_cli.main(["--checkpoint", "x.ckpt", "--config", str(cfg_path),
+                           "--processed-dir", str(processed), "--visualize"])
