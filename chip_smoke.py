@@ -107,6 +107,22 @@
    tree, each on the card against ``--device cpu`` in float32 (the rows,
    labels and splits equal, fake_prob within CLI_PROB_TOL, the aligned
    faces within CLI_FACE_TOL).
+   Then the slice-14 modules: every family's acceptance bars through
+   ``acceptance.py`` (SCRFD, S2D-Lite, MTCNN-Lite, HOG, the cascade and the
+   packaged classifier's held-out AUC), committed weights, on the card;
+   ``promote_weights`` accepting a copy of the committed MTCNN-Lite file
+   into a temporary directory and refusing a candidate with zeroed
+   convolution weights (the bars in a child process on the card; the
+   destination and the shipped directory unchanged); ``profile_e2e`` on
+   path A at B = 128 (each stage's host and device ms and launches: 25
+   ``int8_conv``, one ``crop_frac``, one warp, 44 ``int8_gemm`` a batch;
+   the composed stages against ``forward``; the classify sweep); the four
+   probes at reduced batch (every mode and combo must run);
+   ``measure_crop_fidelity`` on FIDELITY_SCENES scenes over all twelve
+   configurations, each configuration's kernels equal to their plain
+   versions fed the card's geometry; ``experiment_pipeline_ab`` by
+   subprocess at the smallest size with two seeds; ``bench_dataloader``
+   (cv2 path) and ``diag_rss`` for two epochs.
 5. Checks each pipeline on the card against the same pipeline on the CPU
    (plain kernel versions, float32) on two frames with drawn faces (three
    faces of different sizes a frame for the multi-face path, two of path
@@ -1938,7 +1954,6 @@ def training_phase(kernels, wk, card: str, dev) -> dict:
 
 
 # The detector families, detector training and the loaders (phase 4c-4f).
-HELDOUT_SEED = 20260816  # the held-out scenes of the JAX package's acceptance tests
 H_PATH = "H mtcnn detector"
 H_FACES = (36, 110)  # MTCNN-Lite's training faces (px), drawn into 640² frames
 H_SCENES = 32
@@ -1980,104 +1995,6 @@ def h_faces_on_cpu(frames: np.ndarray) -> np.ndarray:
 
     det = FaceDetector(model_name="mtcnn", input_size=SERVING, device="cpu")
     return np.asarray([d is not None for d in det.batch_detect(list(frames))])
-
-
-def _iou(a, b) -> float:
-    x1, y1, x2, y2 = max(a[0], b[0]), max(a[1], b[1]), min(a[2], b[2]), min(a[3], b[3])
-    inter = max(0.0, x2 - x1) * max(0.0, y2 - y1)
-    union = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
-    return float(inter / max(union, 1e-9))
-
-
-def heldout_scenes(seed: int, n: int, size: int, min_face: int, max_face: int):
-    """The single-face held-out scenes of the JAX acceptance tests."""
-    from deepfake_vit_tpu_torch.data.synth_faces import render_scene
-
-    rng = np.random.default_rng(seed)
-    out = []
-    while len(out) < n:
-        img, boxes, kps = render_scene(rng, size=size, max_faces=1, min_face=min_face,
-                                       max_face=max_face, p_empty=0.0)
-        if len(boxes):
-            out.append((img, boxes, kps))
-    return out
-
-
-def best_faces(out: dict, scenes) -> tuple:
-    """Recall at IoU > 0.5 of each scene's best detection, its landmark
-    error in inter-eye distances, and each scene's best IoU."""
-    hits, lm_errs, ious = 0, [], []
-    for i, (_, boxes, kps) in enumerate(scenes):
-        valid = out["valid"][i]
-        if not valid.any():
-            ious.append(0.0)
-            continue
-        best = int(np.argmax(out["scores"][i][valid]))
-        bbox, lms = out["boxes"][i][valid][best], out["landmarks"][i][valid][best]
-        iou = max(_iou(bbox, b) for b in boxes)
-        ious.append(iou)
-        if iou > 0.5:
-            hits += 1
-            ied = float(np.linalg.norm(kps[0][0] - kps[0][1]))
-            lm_errs.append(float(np.linalg.norm(lms - kps[0], axis=1).mean()) / ied)
-    return hits / len(scenes), float(np.mean(lm_errs)) if lm_errs else math.inf, np.asarray(ious)
-
-
-def hog_bar(det) -> dict:
-    """The HOG bar (tests/test_hog_detector.py): recall >= 0.9 at IoU > 0.5
-    on 32 held-out scenes (faces 48-180 px), at most 6 of 30 clutter
-    scenes firing."""
-    scenes = heldout_scenes(HELDOUT_SEED, 32, 320, 48, 180)
-    found = det.batch_detect([s[0] for s in scenes])
-    recall = sum(r is not None and _iou(r["bbox"], s[1][0]) > 0.5
-                 for r, s in zip(found, scenes)) / len(scenes)
-    from deepfake_vit_tpu_torch.data.synth_faces import render_scene
-
-    rng = np.random.default_rng(HELDOUT_SEED + 1)
-    clutter = [render_scene(rng, size=320, p_empty=1.0)[0] for _ in range(30)]
-    fired = sum(r is not None for r in det.batch_detect(clutter))
-    return {"recall": recall, "clutter_fired": fired, "held": recall >= 0.9 and fired <= 6}
-
-
-def detector_bars(dev) -> dict:
-    """The JAX package's slow acceptance bars, with the committed weights,
-    on the card: MTCNN-Lite (tests/test_detector_trained.py), HOG
-    (tests/test_hog_detector.py) and the cascade (tests/test_refine_net.py)."""
-    from deepfake_vit_tpu_torch.data.synth_faces import render_scene
-    from deepfake_vit_tpu_torch.preprocessing.detector import FaceDetector, create_face_detector
-
-    res = {}
-    mtcnn = create_face_detector({"model": "mtcnn", "confidence_threshold": 0.3,
-                                  "scrfd": {"input_size": [160, 160]}}, device=dev)
-    scenes = heldout_scenes(HELDOUT_SEED + 7, 24, 160, 36, 110)
-    recall, lm_err, _ = best_faces(mtcnn.detect_batch_raw(np.stack([s[0] for s in scenes])),
-                                   scenes)
-    res["mtcnn"] = {"recall": recall, "landmark_ied": lm_err,
-                    "held": recall >= 0.85 and lm_err < 0.20}
-    res["hog"] = hog_bar(create_face_detector({"model": "hog", "scrfd": {"input_size": [320, 320]},
-                                               "confidence_threshold": 0.5, "upsample": 1},
-                                              device=dev))
-    base = FaceDetector(confidence_threshold=0.3, input_size=(320, 320), device=dev)
-    casc = FaceDetector(confidence_threshold=0.3, input_size=(320, 320), refine=True,
-                        refine_threshold=0.5, device=dev)
-    scenes = heldout_scenes(HELDOUT_SEED + 21, 24, 320, 48, 220)
-    images = np.stack([s[0] for s in scenes]).astype(np.float32)
-    _, _, iou_b = best_faces(base.detect_batch_raw(images), scenes)
-    recall, lm_err, iou_c = best_faces(casc.detect_batch_raw(images), scenes)
-    rng = np.random.default_rng(HELDOUT_SEED + 22)
-    clutter = np.stack([render_scene(rng, size=320, p_empty=1.1)[0] for _ in range(16)])
-    out = casc.detect_batch_raw(clutter.astype(np.float32))
-    quiet = float((np.where(out["valid"], out["scores"], 0.0).max(axis=1) < 0.6).mean())
-    res["cascade"] = {"recall": recall, "landmark_ied": lm_err, "mean_iou": float(iou_c.mean()),
-                      "base_mean_iou": float(iou_b.mean()), "clutter_quiet": quiet,
-                      "held": (recall >= 0.9 and lm_err < 0.10
-                               and iou_c.mean() >= iou_b.mean() - 0.01 and quiet >= 0.9)}
-    for name, r in res.items():
-        print(f"acceptance bar, {name}, committed weights, on the card: {r}")
-    missed = [k for k, r in res.items() if not r["held"]]
-    if missed:
-        fail(f"the acceptance bars of {missed} are not met on the card: {res}")
-    return res
 
 
 def detector_step(model_name: str, dtype, where, batch) -> dict:
@@ -2189,6 +2106,8 @@ def detector_training_phase(kernels, card: str, dev) -> dict:
     t0 = time.time()
     params = fit_hog_template(n_scenes=HOG_FIT_SCENES, scene_size=DT_SIZE, seed=42, device=dev)
     fit_s = time.time() - t0
+    from deepfake_vit_tpu_torch.acceptance import hog_bar
+
     bar = hog_bar(HogFaceDetector(input_size=(DT_SIZE, DT_SIZE), params=params, device=dev))
     print(f"[{card}] fit_hog_template on {HOG_FIT_SCENES} scenes: {fit_s:.1f} s; its HOG bar: "
           f"{bar}")
@@ -2864,6 +2783,298 @@ def cli_phase(kernels, card: str, dev) -> dict:
     return res
 
 
+# Slice 14: the acceptance bars of every family, the promotion gate, the
+# per-stage profile of path A, the four probes, the crop-fidelity table,
+# the pipeline A/B end to end, the loader harness and the RSS diagnostic.
+PROFILE_STAGE_LAUNCHES = {  # per stage of path A at one batch (profile_e2e's names)
+    "canvas": {}, "detect_320": {}, "detect_320_int8": {"int8_conv": 25},
+    "align_warp_640": {"crop_frac": 1, "warp_affine_legacy": 1}, "quality": {},
+    "classify_b128": {"int8_gemm": 44},
+    "e2e_fused": {"int8_conv": 25, "crop_frac": 1, "warp_affine_legacy": 1, "int8_gemm": 44}}
+PROBE_BATCH = 32
+FIDELITY_SCENES, FIDELITY_SEED = 24, 20260818
+AB_ARGS = ["--arm", "attn", "model:model.feature_extractor.use_attention=true", "--arm", "plain",
+           "model:model.feature_extractor.use_attention=false", "--n-per-class", "8", "--size",
+           "160", "--epochs", "1", "--batch-size", "4", "--train-seeds", "42,43", "--face-size",
+           "64", "--quiet-children"]
+
+
+def run_cli(main_fn, argv) -> tuple:
+    """A port CLI's ``main(argv)`` in this process, its standard output
+    echoed; returns (exit code, the last JSON object it printed)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn([str(a) for a in argv])
+    text = buf.getvalue()
+    sys.stdout.write(text)
+    last = None
+    for line in text.splitlines():
+        if line.startswith("{"):
+            try:
+                last = json.loads(line)
+            except json.JSONDecodeError:
+                pass
+    return rc, last
+
+
+def acceptance_phase(dev) -> dict:
+    """Every family's acceptance bars (``acceptance.py``), committed weights, on the card."""
+    from deepfake_vit_tpu_torch import acceptance
+
+    res = {}
+    for model in acceptance.FAMILIES:
+        t0 = time.time()
+        res[model] = {**acceptance.run(model, dev), "seconds": time.time() - t0}
+        print(f"acceptance bar, {model}, committed weights, on the card: {res[model]}")
+    missed = [k for k, r in res.items() if not r["held"]]
+    if missed:
+        fail(f"the acceptance bars of {missed} are not met on the card: {res}")
+    return res
+
+
+def _digests(directory: Path) -> dict:
+    return {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(directory.glob("*.msgpack"))}
+
+
+def promotion_phase() -> dict:
+    """``promote_weights`` on the card (the bars in a child process, no
+    ``--device``): a copy of the committed MTCNN-Lite weights is promoted
+    into a temporary directory; a candidate with zeroed convolution weights
+    is refused and the destination's file stays as it was. The shipped
+    weights directory does not change."""
+    import shutil
+    import tempfile
+
+    from deepfake_vit_tpu_torch import promote_weights
+    from deepfake_vit_tpu_torch.preprocessing.detector import (_WEIGHTS_DIR,
+                                                                DEFAULT_WEIGHTS_BY_MODEL)
+    from deepfake_vit_tpu_torch.utils.msgpack import msgpack_restore, msgpack_serialize
+
+    def zero_kernels(tree):
+        if isinstance(tree, dict):
+            return {k: np.zeros_like(v) if k == "kernel" else zero_kernels(v)
+                    for k, v in tree.items()}
+        return tree
+
+    shipped = _digests(_WEIGHTS_DIR)
+    src = DEFAULT_WEIGHTS_BY_MODEL["mtcnn"]
+    with tempfile.TemporaryDirectory(prefix="dfv_promote_") as tmp:
+        tmp = Path(tmp)
+        staged, broken, dest = tmp / "staged.msgpack", tmp / "broken.msgpack", tmp / "weights"
+        shutil.copyfile(src, staged)
+        broken.write_bytes(msgpack_serialize(zero_kernels(msgpack_restore(src))))
+        t0 = time.time()
+        rc_ok = promote_weights.main([str(staged), "--model", "mtcnn"], dest_dir=dest)
+        ok_s = time.time() - t0
+        out = dest / src.name
+        accepted = rc_ok == 0 and out.exists() and _digests(dest)[src.name] == _digests(tmp)[
+            "staged.msgpack"]
+        before = _digests(dest)
+        t0 = time.time()
+        rc_bad = promote_weights.main([str(broken), "--model", "mtcnn"], dest_dir=dest)
+        bad_s = time.time() - t0
+        refused = rc_bad == 1 and _digests(dest) == before and broken.exists()
+    res = {"accepted_rc": rc_ok, "accepted": accepted, "accept_s": ok_s, "refused_rc": rc_bad,
+           "refused": refused, "refuse_s": bad_s, "shipped_unchanged": _digests(_WEIGHTS_DIR) == shipped}
+    print(f"promotion gate on the card: {res}")
+    if not (accepted and refused and res["shipped_unchanged"]):
+        fail(f"the promotion gate misbehaved: {res}")
+    return res
+
+
+def profile_phase(card: str) -> dict:
+    """``profile_e2e`` on path A at B = 128: the stages' host and device
+    ms, the classify sweep, and each stage's launches; the composed stages
+    against ``forward`` on the same frames."""
+    from deepfake_vit_tpu_torch import profile_e2e
+
+    pipe = profile_e2e.headline_pipeline()
+    frames = seeded_batches(128, 1, 11)[0].to(pipe.device)
+    res = profile_e2e.profile(pipe, frames, iters=5, warmup=2, sweep=True)
+    with torch.inference_mode():
+        got = pipe._classify(profile_e2e.staged_state(pipe, frames)["state"])
+    want = pipe.forward(frames)
+    gap = {k: float((got[k].float() - want[k].float()).abs().max()) for k in want}
+    res["composed_vs_forward_max_abs"] = gap
+    print(f"[{card}] profile_e2e, path A, B = 128: host ms {res['host_ms']}; device ms "
+          f"{res['device_ms']}; launches {res['launches']}; classify sweep "
+          f"{res['classify_sweep']}; composed stages vs forward, max abs {gap}")
+    if res["launches"] != PROFILE_STAGE_LAUNCHES:
+        fail(f"profile_e2e: launches {res['launches']}, expected {PROFILE_STAGE_LAUNCHES}")
+    if not (torch.equal(got["has_face"], want["has_face"])
+            and all(gap[k] <= SS_LIMITS[k] for k in SS_LIMITS)):
+        fail(f"profile_e2e: the composed stages disagree with forward: {gap}")
+    dms = res["device_ms"]
+    staged = sum(dms[k] for k in ("canvas", "detect_320_int8", "align_warp_640", "quality",
+                                  "classify_b128"))
+    res["staged_device_ms"] = staged
+    if set(dms) != set(res["host_ms"]) or min(dms.values()) <= 0.0:
+        fail(f"profile_e2e: a stage has no device time: {dms}")
+    if abs(staged - dms["e2e_fused"]) > 0.1 * dms["e2e_fused"]:
+        fail(f"profile_e2e: the stages' device ms sum to {staged:.3f}, forward's is "
+             f"{dms['e2e_fused']:.3f}: the profiler lost records")
+    del pipe
+    torch.cuda.empty_cache()
+    return res
+
+
+def probes_phase(card: str, out_dir: Path) -> dict:
+    """The four probes at reduced batch; any failed mode or combo fails."""
+    from deepfake_vit_tpu_torch import (probe_lite_detect, probe_refine_timing, probe_serving,
+                                        probe_warp_kernel)
+
+    res = {"warp_kernel": probe_warp_kernel.probe(batch=128, window=160, iters=10, warmup=2)}
+    rc, res["serving_one"] = run_cli(probe_serving.main, ["--batch", PROBE_BATCH, "--iters", 3])
+    if rc:
+        fail(f"probe_serving (one config) exited {rc}")
+    sweep_json = out_dir / "probe_serving_sweep.jsonl"
+    sweep_json.unlink(missing_ok=True)
+    rc, res["serving_sweep"] = run_cli(probe_serving.main, [
+        "--batch", PROBE_BATCH, "--iters", 3, "--int8-static", "--sweep", "128f+d,160b-uw16+L",
+        "--json", sweep_json])
+    lines = [json.loads(x) for x in sweep_json.read_text().splitlines()]
+    if rc or len(lines) != 2 or any("error" in x for x in lines):
+        fail(f"probe_serving --sweep exited {rc}: {lines}")
+    res["lite_detect"] = probe_lite_detect.probe(batch=PROBE_BATCH * 2, iters=5)
+    res["refine_timing"] = probe_refine_timing.probe(batch=PROBE_BATCH, iters=5)
+    failed = {k: v["failed"] for k, v in res.items() if isinstance(v, dict) and v.get("failed")}
+    print(f"[{card}] probes: {json.dumps(res)}")
+    if failed:
+        fail(f"probes failed: {failed}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def windowed_geometry(images: torch.Tensor, tf: torch.Tensor, window: int, geom: str):
+    """``warp_affine_windowed``'s per-face geometry on the images' device:
+    the crop's arguments (without frames and window) and the window-space
+    affine of the warp."""
+    from deepfake_vit_tpu_torch.ops.umeyama import invert_affine
+    from deepfake_vit_tpu_torch.ops.warp import (frac_window_levels, max_window_levels,
+                                                 window_geometry, window_geometry_frac)
+
+    H, W = images.shape[1:3]
+    A_inv = invert_affine(tf)
+    idx = torch.arange(tf.shape[0], device=tf.device)
+    if geom == "frac":
+        level, strip0s, r, off_y, x0f, A_win = window_geometry_frac(
+            A_inv, (224, 224), (H, W), window, frac_window_levels(H, window), y_align=16)
+        return (strip0s[level.long(), idx], level, r, off_y, x0f), A_win
+    level, y0s, x0s, A_win = window_geometry(A_inv, (224, 224), (H, W), window,
+                                             max_window_levels((H, W), window), y_align=16)
+    return (y0s[level.long(), idx] << level, x0s[level.long(), idx], level), A_win
+
+
+def fidelity_phase(card: str) -> dict:
+    """``measure_crop_fidelity`` on FIDELITY_SCENES scenes over all twelve
+    configurations on the card. Each configuration's kernels (crop, then
+    warp) are held to their plain versions on the CPU fed the card's own
+    geometry: the outputs, and so the RMSE table, must be equal. The same
+    configuration run whole on the CPU (its geometry computed there in
+    float32) is printed beside it, with the faces whose geometry differs."""
+    from deepfake_vit_tpu_torch import measure_crop_fidelity as mcf
+    from deepfake_vit_tpu_torch.ops import warp_kernel as wk
+    from deepfake_vit_tpu_torch.ops.umeyama import umeyama
+    from deepfake_vit_tpu_torch.preprocessing.aligner import FaceAligner
+
+    images, kps = mcf.build_corpus(np.random.default_rng(FIDELITY_SEED), FIDELITY_SCENES, 640)
+    configs = mcf.configurations([160, 128], ["block", "frac"], ["legacy", "uw16", "int8"])
+    card_res = mcf.fidelity(images, kps, configs, "cuda", keep_outputs=True)
+    cpu_res = mcf.fidelity(images, kps, configs, "cpu", keep_outputs=True)
+    n = len(images)
+    ref = torch.as_tensor(FaceAligner(output_size=(224, 224), device="cpu").reference)
+    tf = umeyama(torch.as_tensor(kps, dtype=torch.float32), ref.expand(n, 5, 2))
+    imgs_cpu = torch.as_tensor(images)
+    frames_cpu = imgs_cpu.to(torch.bfloat16).reshape(n, 640, 640 * 3)
+    res = {"scenes": n, "bin_counts": card_res["bin_counts"], "rows": {}}
+    bad = []
+    for window, geom, tap in configs:
+        key = f"w{window}-{geom}-{tap}"
+        g_card, A_card = windowed_geometry(imgs_cpu.cuda(), tf.cuda(), window, geom)
+        g_cpu, _ = windowed_geometry(imgs_cpu, tf, window, geom)
+        g_card = [t.cpu() for t in g_card]
+        names = ("y0_l0", "x0", "level") if geom == "block" else (
+            "strip0", "level", "r", "off_y", "x0f")
+        field = {k: (a.double() != b.double()) for k, a, b in zip(names, g_card, g_cpu)}
+        differs = torch.stack(list(field.values())).any(dim=0)
+        crop_fn = (wk.crop_pool if geom == "block" else
+                   wk.crop_frac if tap == "legacy" else wk.crop_frac_mxu)
+        crop = crop_fn(frames_cpu, *g_card, window, 3)
+        plain = wk.WARP_KERNELS[tap](crop.reshape(n, window, window, 3), A_card.cpu(),
+                                     (224, 224), inverse=True).numpy()
+        diff = float(np.abs(card_res["outputs"][key] - plain).max())
+        whole_cpu = float(np.abs(card_res["outputs"][key] - cpu_res["outputs"][key]).max())
+        res["rows"][key] = {"rmse": card_res["results"][key],
+                            "cpu_rmse": cpu_res["results"][key], "max_abs_vs_plain": diff,
+                            "max_abs_vs_cpu_run": whole_cpu,
+                            "faces_geometry_differs": int(differs.sum()),
+                            "geometry_fields_differ": {k: int(v.sum()) for k, v in field.items()
+                                                       if v.any()},
+                            "card_s": card_res["seconds"][key]}
+        print(f"[{card}] crop fidelity {key:20s} "
+              + "  ".join(f"{k}={v:.4f}" for k, v in card_res["results"][key].items())
+              + f"   kernels vs plain (card geometry) max abs {diff}; the CPU run pooled "
+              f"{cpu_res['results'][key]['pooled']:.4f}, max abs {whole_cpu}, "
+              f"{int(differs.sum())} faces with other geometry "
+              f"{res['rows'][key]['geometry_fields_differ']}")
+        if diff > 0.0:
+            bad.append(key)
+    if bad:
+        fail(f"crop fidelity: the kernels differ from their plain versions on {bad}")
+    return res
+
+
+def pipeline_ab_phase(card: str) -> dict:
+    """``experiment_pipeline_ab`` end to end by subprocess on the card at
+    the smallest size (b0, 64² faces, one epoch, two seeds)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="dfv_ab_") as ws:
+        t0 = time.time()
+        proc = subprocess.run([sys.executable, "-m", "deepfake_vit_tpu_torch.experiment_pipeline_ab",
+                               "--workdir", ws, *AB_ARGS], cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        secs = time.time() - t0
+        summary = (json.loads((Path(ws) / "summary.json").read_text())
+                   if (Path(ws) / "summary.json").exists() else None)
+    print(f"[{card}] experiment_pipeline_ab by subprocess: exit {proc.returncode} in {secs:.1f} s; "
+          f"summary {json.dumps(summary)}")
+    if proc.returncode or not summary or summary["delta_seeds"] != [42, 43] or not all(
+            math.isfinite(v) for v in summary["auc_control"]["per_seed"]
+            + summary["auc_treat"]["per_seed"]):
+        fail(f"experiment_pipeline_ab failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    return {"seconds": secs, "summary": summary}
+
+
+def loader_and_rss_phase(card: str) -> dict:
+    """``bench_dataloader`` (the cv2 path; the native decoder does not
+    build on this machine, which the run must say) and ``diag_rss`` for
+    two epochs, over a drawn processed directory."""
+    import tempfile
+
+    from deepfake_vit_tpu_torch import bench_dataloader, diag_rss
+    from deepfake_vit_tpu_torch.tools.synth_processed import write_processed
+
+    with tempfile.TemporaryDirectory(prefix="dfv_proc_") as tmp:
+        write_processed(Path(tmp), counts=(256, 32, 32), size=224, seed=3)
+        rc, loader = run_cli(bench_dataloader.main, ["--processed-dir", tmp, "--batch-size", 32,
+                                                     "--num-workers", 4, "--batches", 6])
+        if rc or not loader or loader.get("python threads") is None:
+            fail(f"bench_dataloader exited {rc}: {loader}")
+        rc, rss = run_cli(diag_rss.main, ["--processed-dir", tmp, "--epochs", 2,
+                                          "--batch-size", 16, "--action", "clear"])
+        if rc or not rss or len(rss["rss_mb"]) != 3:
+            fail(f"diag_rss exited {rc}: {rss}")
+    print(f"[{card}] bench_dataloader: {loader}; diag_rss: {rss}")
+    torch.cuda.empty_cache()
+    return {"bench_dataloader": loader, "diag_rss": rss}
+
+
+
 def card_vs_cpu(path: str, frames: np.ndarray, limits: dict) -> dict:
     """The pipeline on the card against the same pipeline on the CPU (plain
     kernel versions), float32 without TF32; path A hands the card's
@@ -3004,6 +3215,12 @@ def main() -> None:
     t0 = time.time()
     lib = wk.build_library(verbose=True)
     print(f"build: {time.time() - t0:.1f} s -> {lib.name}")
+    # Path A by stage first, while the profiler sees every kernel: later in
+    # the run (after the data-parallel and CLI phases) its sessions have
+    # lost the elementwise kernels' records.
+    t14 = time.time()
+    profile = profile_phase(card)
+    profile_s = time.time() - t14
 
     # 3. Kernels vs plain versions at the serving shapes.
     H, W = SERVING
@@ -3099,7 +3316,9 @@ def main() -> None:
     # 4c-4f. The predictor with each new detector family, the families'
     #    acceptance bars, detector training, the loaders feeding T.
     families = {family: predictor_phase(kernels, dev, family) for family in DETECTOR_FAMILIES}
-    bars = detector_bars(dev)
+    t14 = time.time()
+    bars = acceptance_phase(dev)
+    slice14_s = profile_s + time.time() - t14
     detector_training = detector_training_phase(kernels, card, dev)
     loaders = loader_phase(kernels, card, dev)
     torch.cuda.empty_cache()
@@ -3116,6 +3335,19 @@ def main() -> None:
     new_phases_s = time.time() - t_new
     print(f"data-parallel, sharded serving, checkpoint and CLI phases: {new_phases_s:.1f} s")
     torch.cuda.empty_cache()
+    # 4m-4r. The promotion gate, the per-stage profile, the probes, the
+    #    fidelity table, the pipeline A/B, the loader harness and diag_rss.
+    t14 = time.time()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    slice14 = {"acceptance_s": slice14_s, "promotion": promotion_phase(),
+               "profile_e2e": profile, "probes": probes_phase(card, out_dir),
+               "crop_fidelity": fidelity_phase(card), "pipeline_ab": pipeline_ab_phase(card),
+               **loader_and_rss_phase(card)}
+    slice14_s += time.time() - t14
+    slice14["seconds"] = slice14_s
+    print(f"acceptance, promotion, profile, probe, fidelity, A/B, loader and RSS phases: "
+          f"{slice14_s:.1f} s")
 
     # 5. Each pipeline on the card vs on the CPU (plain kernel versions),
     #    float32. Float convolutions differ in the last place between cuDNN
@@ -3316,9 +3548,8 @@ def main() -> None:
              "vit_predictor": vit_predictor, "vit_training": vit_training,
              "data_parallel": data_parallel, "sharded_serving": sharded,
              "sharded_checkpoint": checkpoint, "clis": clis, "new_phases_s": new_phases_s,
+             "slice14": slice14,
              "torch": torch.__version__, "cuda": torch.version.cuda}
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     timings = [k["ms"] for k in report["kernels"]] + [
         r["faces_per_s"] for v in paths.values() for r in v["rounds"]]
     if not all(math.isfinite(v) for v in timings):

@@ -315,16 +315,29 @@ class FusedPipeline:
         return self._classify(self._detect_align(frames))
 
     def _detect_align(self, frames: torch.Tensor) -> Dict[str, Any]:
-        """Stages 0-3: detection, alignment, quality; the state stage 4 takes."""
+        """Stages 0-3: detection, alignment, quality; the state stage 4 takes.
+        Each stage is a method of its own (``profile_e2e`` times them one
+        by one); composed here they are the graph's first half."""
         # Frame-side compute in the pipeline dtype: the warp quantizes
         # pixels to bf16 regardless.
         frames = frames.to(self.dtype)
+        det = self._detect(self._canvas(frames))
+        bbox, lms = self._to_serving(det["bbox"], det["landmarks"])
+        aligned, aligned_lms = self._align(frames, lms, det["frame_idx"])
+        quality, q_valid = self._quality(aligned, aligned_lms, bbox, det["confidence"])
+        return {"B": frames.shape[0], "has_face": det["has_face"],
+                "confidence": det["confidence"], "bbox": bbox, "aligned": aligned,
+                "landmarks": aligned_lms, "quality": quality, "quality_valid": q_valid}
 
-        # 0–1. Detection canvas, detection network + decode. One face per
-        #    frame is the argmax; K faces are the NMS survivors of the top-M
-        #    anchors.
-        B, K = frames.shape[0], self.keep_top_k
-        outs = (self._det_int8 if self.use_int8_detector else self.detector)(self._canvas(frames))
+    def _detect(self, canvas: torch.Tensor, int8: Optional[bool] = None) -> Dict[str, Any]:
+        """Stage 1: the detection network on the normalized canvas (the int8
+        graph when ``use_int8_detector``, or as ``int8`` says), anchor
+        decode and face selection, in canvas coordinates. One face per
+        frame is the argmax; K faces are the NMS survivors of the top-M
+        anchors, with ``frame_idx`` mapping each slot to its frame."""
+        int8 = self.use_int8_detector if int8 is None else int8
+        B, K = canvas.shape[0], self.keep_top_k
+        outs = (self._det_int8 if int8 else self.detector)(canvas)
         scores = torch.cat([torch.sigmoid(outs[s]["scores"]) for s in STRIDES], dim=1)
         dist = torch.cat([outs[s]["bbox"] for s in STRIDES], dim=1)
         kps = torch.cat([outs[s]["kps"] for s in STRIDES], dim=1)
@@ -356,15 +369,22 @@ class FusedPipeline:
             has_face = (valid.reshape(B * K) & (conf >= self.confidence_threshold))
             # The K faces of a frame share its pixels: no frame copies.
             frame_idx = rows.repeat_interleave(K)
+        return {"confidence": conf, "bbox": bbox, "landmarks": lms, "has_face": has_face,
+                "frame_idx": frame_idx}
 
-        # Canvas → serving coords (pixel centers: u_s = r·u + (r−1)/2).
+    def _to_serving(self, bbox: torch.Tensor, lms: torch.Tensor):
+        """Canvas → serving coords (pixel centers: u_s = r·u + (r−1)/2)."""
         r = self._pool_ratio
         if r > 1:
             shift = 0.5 * (r - 1)
             bbox = bbox * r + shift
             lms = lms * r + shift
+        return bbox, lms
 
-        # 2. Alignment: batched Umeyama + warp from the serving frames.
+    def _align(self, frames: torch.Tensor, lms: torch.Tensor,
+               frame_idx: Optional[torch.Tensor] = None):
+        """Stage 2: batched Umeyama + warp from the serving frames (already
+        in the pipeline dtype). Returns the aligned faces and landmarks."""
         tform = umeyama(lms, self.reference.expand(lms.shape))
         if self._windowed:
             aligned = warp_affine_windowed(frames, tform, self.output_size,
@@ -375,17 +395,16 @@ class FusedPipeline:
             src = frames if frame_idx is None else frames[frame_idx]
             aligned = warp_affine_auto(src, tform, self.output_size,
                                        tap_construction=self.warp_tap_mode)
-        aligned_lms = transform_points(tform, lms)
+        return aligned, transform_points(tform, lms)
 
-        # 3. Quality scoring on the aligned face (skippable).
+    def _quality(self, aligned: torch.Tensor, aligned_lms: torch.Tensor, bbox: torch.Tensor,
+                 conf: torch.Tensor):
+        """Stage 3: quality score and validity of each aligned face (quality
+        1, valid, with ``compute_quality=False``)."""
         if self.compute_quality:
             quality, q_valid, _ = overall_quality(aligned, aligned_lms, bbox, conf)
-        else:
-            quality = torch.ones_like(conf)
-            q_valid = torch.ones_like(conf, dtype=torch.bool)
-        return {"B": B, "has_face": has_face, "confidence": conf, "bbox": bbox,
-                "aligned": aligned, "landmarks": aligned_lms, "quality": quality,
-                "quality_valid": q_valid}
+            return quality, q_valid
+        return torch.ones_like(conf), torch.ones_like(conf, dtype=torch.bool)
 
     def _classify(self, st: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Stage 4 and the outputs, from ``_detect_align``'s state."""

@@ -26,6 +26,7 @@ kept where the refined score reaches ``refine_threshold``.
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -55,7 +56,15 @@ DEFAULT_WEIGHTS_BY_MODEL = {"scrfd": _WEIGHTS_DIR / "scrfd_synface.msgpack",
 
 
 def default_weights_path(model: str = "scrfd") -> Optional[str]:
-    """Path to the committed weights of ``model``, or None if absent."""
+    """Path to the committed weights of ``model``, or None if absent.
+
+    ``DFV_WEIGHTS_<MODEL>`` (e.g. ``DFV_WEIGHTS_LITE``) overrides the
+    committed path: a path that exists wins, one that does not gives None.
+    The promotion gate (``promote_weights.py``) sets it so that every
+    loader sees the staged candidate while the family's bars run."""
+    env = os.environ.get(f"DFV_WEIGHTS_{model.upper()}")
+    if env:
+        return env if Path(env).exists() else None
     p = DEFAULT_WEIGHTS_BY_MODEL.get(model)
     return str(p) if p is not None and p.exists() else None
 

@@ -80,7 +80,11 @@ def test_import_scan_covers_the_entry_points():
                 "utils/tb_writer.py", "utils/visualization.py", "parallel/__init__.py",
                 "parallel/mesh.py", "parallel/collectives.py", "utils/device.py",
                 "utils/orbax_io.py", "run_pipeline.py", "preprocess_dataset.py",
-                "package_classifier.py"):
+                "package_classifier.py", "acceptance.py", "promote_weights.py",
+                "experiment_attention_ablation.py", "aggregate_ablation.py",
+                "experiment_pipeline_ab.py", "measure_crop_fidelity.py", "bench_dataloader.py",
+                "diag_rss.py", "profile_e2e.py", "setup_project.py", "probe_lite_detect.py",
+                "probe_refine_timing.py", "probe_serving.py", "probe_warp_kernel.py"):
         assert f"deepfake_vit_tpu_torch/{rel}" in names, rel
 
 
