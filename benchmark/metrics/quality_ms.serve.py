@@ -1,0 +1,9 @@
+"""Device ms a batch of the kernels launched inside the program's
+``serve.quality`` span (``_quality``: the aligned faces' quality scores),
+from the profiled slice; None when the span is missing or launched no
+kernel. Moves ``faces_per_s``."""
+
+
+def read(sl, ctx):
+    ms = sl.range_ms("serve.quality")
+    return None if ms is None else ms / sl.steps

@@ -303,7 +303,9 @@ def device_ms(fn, own: str = "", iters: int = 20, warmup: int = 3) -> dict:
     this leaves out the host's enqueue time. Returns ``ms``, the time per
     call of the kernels whose name holds ``own`` (every kernel by default),
     ``call_ms`` and ``launches``, all device time and device launches per
-    call, and the per-kernel split."""
+    call, and the per-kernel split. Ranges' device rows are left out."""
+    from deepfake_vit_tpu_torch.utils.profiling import device_work
+
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -321,9 +323,7 @@ def device_ms(fn, own: str = "", iters: int = 20, warmup: int = 3) -> dict:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        got = [ev for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA
-               and ev.self_device_time_total > 0]
+        got = [ev for ev in device_work(prof.key_averages()) if ev.self_device_time_total > 0]
         events = got or events  # a try that saw nothing keeps the one before
         if got and all(ev.count % iters == 0 for ev in got):
             break
@@ -1725,6 +1725,8 @@ def optimizer_card_vs_cpu(dev, weight_decay: float = 0.1) -> float:
 
 def train_profile(step, batch, step_ms: float) -> dict:
     """One train step under torch.profiler: device time by class."""
+    from deepfake_vit_tpu_torch.utils.profiling import device_work
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -1732,12 +1734,10 @@ def train_profile(step, batch, step_ms: float) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = defaultdict(float)
-    for ev in prof.key_averages():
-        # "Optimizer.step#AdamW.step" and the like are ranges that span
-        # kernels counted on their own: not device work of their own.
-        if (ev.device_type == torch.autograd.DeviceType.CUDA
-                and not ev.key.startswith(("Optimizer.", "ProfilerStep"))):
-            by_kernel[ev.key] += ev.self_device_time_total
+    # "Optimizer.step#AdamW.step", "classify.attention" and the like are
+    # ranges that span kernels counted on their own: not device work.
+    for ev in device_work(prof.key_averages()):
+        by_kernel[ev.key] += ev.self_device_time_total
     busy_us = sum(by_kernel.values())
     if busy_us <= 0:
         fail("the profiler saw no device time in the train step")
@@ -3155,6 +3155,8 @@ def profile_batch(pipe, frames, batch_ms: float, classes=KERNEL_CLASSES,
     """One served batch under torch.profiler: device time by kernel and by
     class; with ``ranges`` ({module: name}), also the device time of the
     kernels launched inside each named module's forwards (summed per name)."""
+    from deepfake_vit_tpu_torch.utils.profiling import device_work
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     names = set((ranges or {}).values())
     with module_ranges(ranges or {}), torch.profiler.profile(activities=acts) as prof:
@@ -3164,12 +3166,13 @@ def profile_batch(pipe, frames, batch_ms: float, classes=KERNEL_CLASSES,
         wall_us = (time.perf_counter() - t0) * 1e6
     by_kernel = defaultdict(float)
     by_range = defaultdict(float)
-    for ev in prof.key_averages():
-        # A range also appears as a device row spanning its kernels: not
-        # device work of its own.
-        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.key not in names:
-            by_kernel[ev.key] += ev.self_device_time_total
-        elif ev.device_type == torch.autograd.DeviceType.CPU and ev.key in names:
+    events = prof.key_averages()
+    # A range (these modules', the program's serve.* and classify.attention)
+    # also appears as a device row spanning its kernels: not device work.
+    for ev in device_work(events):
+        by_kernel[ev.key] += ev.self_device_time_total
+    for ev in events:
+        if ev.device_type == torch.autograd.DeviceType.CPU and ev.key in names:
             by_range[ev.key] += ev.device_time_total
     busy_us = sum(by_kernel.values())
     if busy_us <= 0:

@@ -62,6 +62,7 @@ from .parallel.collectives import fixed_batch_max
 from .preprocessing.aligner import DEFAULT_REFERENCE_LANDMARKS, _LANDMARK_ORDER
 from .preprocessing.detector import build_detection_net, default_weights_path
 from .utils.msgpack import msgpack_restore
+from .utils.profiling import annotate
 
 
 class FusedPipeline:
@@ -305,11 +306,19 @@ class FusedPipeline:
     @torch.inference_mode()
     def forward(self, frames) -> Dict[str, torch.Tensor]:
         """frames: (B, H, W, 3) RGB [0, 255] at serving size, uint8 or float,
-        numpy or tensor. Returns per-frame tensors on the pipeline's device."""
+        numpy or tensor. Returns per-frame tensors on the pipeline's device.
+
+        While ``torch.profiler`` records, the call is a ``serve.forward``
+        range holding one range a stage, in order: ``serve.frames_in``,
+        ``serve.canvas``, ``serve.detect``, ``serve.align``,
+        ``serve.quality`` and ``serve.classify`` (``utils/profiling.py``)."""
         if not self._initialized:
             raise RuntimeError("call init_variables or load_variables before forward")
-        ensure_eval(self.detector, self.model)
-        return self._graph(torch.as_tensor(frames).to(self.device))
+        with annotate("serve.forward"):
+            ensure_eval(self.detector, self.model)
+            with annotate("serve.frames_in"):
+                frames = torch.as_tensor(frames).to(self.device)
+            return self._graph(frames)
 
     def _graph(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self._classify(self._detect_align(frames))
@@ -320,11 +329,16 @@ class FusedPipeline:
         by one); composed here they are the graph's first half."""
         # Frame-side compute in the pipeline dtype: the warp quantizes
         # pixels to bf16 regardless.
-        frames = frames.to(self.dtype)
-        det = self._detect(self._canvas(frames))
-        bbox, lms = self._to_serving(det["bbox"], det["landmarks"])
-        aligned, aligned_lms = self._align(frames, lms, det["frame_idx"])
-        quality, q_valid = self._quality(aligned, aligned_lms, bbox, det["confidence"])
+        with annotate("serve.canvas"):
+            frames = frames.to(self.dtype)
+            canvas = self._canvas(frames)
+        with annotate("serve.detect"):
+            det = self._detect(canvas)
+            bbox, lms = self._to_serving(det["bbox"], det["landmarks"])
+        with annotate("serve.align"):
+            aligned, aligned_lms = self._align(frames, lms, det["frame_idx"])
+        with annotate("serve.quality"):
+            quality, q_valid = self._quality(aligned, aligned_lms, bbox, det["confidence"])
         return {"B": frames.shape[0], "has_face": det["has_face"],
                 "confidence": det["confidence"], "bbox": bbox, "aligned": aligned,
                 "landmarks": aligned_lms, "quality": quality, "quality_valid": q_valid}
@@ -408,48 +422,49 @@ class FusedPipeline:
 
     def _classify(self, st: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Stage 4 and the outputs, from ``_detect_align``'s state."""
-        B, K = st["B"], self.keep_top_k
-        aligned, aligned_lms, has_face = st["aligned"], st["landmarks"], st["has_face"]
+        with annotate("serve.classify"):
+            B, K = st["B"], self.keep_top_k
+            aligned, aligned_lms, has_face = st["aligned"], st["landmarks"], st["has_face"]
 
-        # 4. Classification. The fused early stages and the int8 tail both
-        #    work on NHWC in bf16 whatever the pipeline dtype; the stock
-        #    backbone resumes after the one and the head conv, attention and
-        #    classifier after the other.
-        norm = normalize_imagenet(aligned / 255.0)
-        if self.use_fused_backbone:
-            x_tail = self._fused(norm).permute(0, 3, 1, 2)
-            logits, features = self.model(x_tail, aligned_lms,
-                                          backbone_start_block=self._fused.tail_start)
-        elif self.use_int8_tail or self.use_s2d_early:
-            backbone = self.model.feature_extractor.backbone
-            x, start = norm, 0
-            if self.use_s2d_early:
-                x, start = self._s2d(norm), self._s2d.resume_block
-            if self.use_int8_tail:
-                split = backbone(x, start_block=start, stop_block=self._tail.start,
-                                 dtype=torch.bfloat16)
-                x = self._tail(split.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-                start = len(backbone.blocks)
-            logits, features = self.model(x, aligned_lms, backbone_start_block=start)
-        else:
-            logits, features = self.model(norm, aligned_lms)
-        probs = torch.softmax(logits, dim=-1)
-        out = {
-            "has_face": has_face,
-            "confidence": st["confidence"],
-            "bbox": st["bbox"],
-            "landmarks": aligned_lms,
-            "quality": st["quality"],
-            "quality_valid": st["quality_valid"],
-            "probs": probs,
-            "fake_prob": torch.where(has_face, probs[:, 1], torch.zeros_like(probs[:, 1])),
-            "features": features,
-        }
-        if K > 1:
-            # (B·K, …) → (B, K, …); the validity mask also under its config name.
-            out = {k: v.reshape(B, K, *v.shape[1:]) for k, v in out.items()}
-            out["face_valid"] = out["has_face"]
-        return out
+            # 4. Classification. The fused early stages and the int8 tail both
+            #    work on NHWC in bf16 whatever the pipeline dtype; the stock
+            #    backbone resumes after the one and the head conv, attention and
+            #    classifier after the other.
+            norm = normalize_imagenet(aligned / 255.0)
+            if self.use_fused_backbone:
+                x_tail = self._fused(norm).permute(0, 3, 1, 2)
+                logits, features = self.model(x_tail, aligned_lms,
+                                              backbone_start_block=self._fused.tail_start)
+            elif self.use_int8_tail or self.use_s2d_early:
+                backbone = self.model.feature_extractor.backbone
+                x, start = norm, 0
+                if self.use_s2d_early:
+                    x, start = self._s2d(norm), self._s2d.resume_block
+                if self.use_int8_tail:
+                    split = backbone(x, start_block=start, stop_block=self._tail.start,
+                                     dtype=torch.bfloat16)
+                    x = self._tail(split.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+                    start = len(backbone.blocks)
+                logits, features = self.model(x, aligned_lms, backbone_start_block=start)
+            else:
+                logits, features = self.model(norm, aligned_lms)
+            probs = torch.softmax(logits, dim=-1)
+            out = {
+                "has_face": has_face,
+                "confidence": st["confidence"],
+                "bbox": st["bbox"],
+                "landmarks": aligned_lms,
+                "quality": st["quality"],
+                "quality_valid": st["quality_valid"],
+                "probs": probs,
+                "fake_prob": torch.where(has_face, probs[:, 1], torch.zeros_like(probs[:, 1])),
+                "features": features,
+            }
+            if K > 1:
+                # (B·K, …) → (B, K, …); the validity mask also under its config name.
+                out = {k: v.reshape(B, K, *v.shape[1:]) for k, v in out.items()}
+                out["face_valid"] = out["has_face"]
+            return out
 
     # ------------------------------------------------------------------
     def _attention_max(self, st: Dict[str, Any]) -> Optional[torch.Tensor]:

@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.profiling import annotate
 from .attention import HybridAttention
 from .efficientnet import EfficientNetBackbone, feature_dim
 from .layers import BatchNorm, Dense, Dropout
@@ -49,7 +50,8 @@ class DeepfakeFeatureExtractor(nn.Module):
         """images: (B, H, W, 3) normalized NHWC; landmarks: (B, 5, 2)."""
         maps = self.backbone(images, start_block=backbone_start_block, generator=generator)
         if self.use_attention:
-            maps = self.attention(maps, landmarks)
+            with annotate("classify.attention"):
+                maps = self.attention(maps, landmarks)
         return self.dropout(maps.mean(dim=(2, 3)), generator)
 
 

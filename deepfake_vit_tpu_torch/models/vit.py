@@ -31,6 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.profiling import annotate
 from .bridge import load_flax_variables
 from .layers import Conv, Dense, Dropout, LayerNorm, MultiHeadDotProductAttention
 
@@ -56,7 +57,10 @@ class EncoderBlock(nn.Module):
         self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), generator)
+        h = self.ln1(x)
+        with annotate("classify.attention"):
+            h = self.attn(h, generator)
+        x = x + h
         y = self.fc2(F.gelu(self.fc1(self.ln2(x))))
         return x + self.dropout(y, generator)
 

@@ -42,6 +42,8 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from .utils.profiling import device_work
+
 SERVING, DETECT, WINDOW, FACE, TAIL_START = (640, 640), (320, 320), 128, (192, 192), 10
 
 
@@ -149,15 +151,16 @@ def stage_fns(pipe, frames: torch.Tensor) -> Dict[str, Callable[[], Any]]:
 def device_ms_of(fn: Callable[[], Any], device: torch.device, sessions: int = 2) -> float:
     """The device time of the kernels one call of ``fn`` launches, from
     ``torch.profiler``: the larger sum of ``sessions`` profiled calls
-    (the profiler now and then loses records late in a long process)."""
+    (the profiler now and then loses records late in a long process).
+    Ranges' device rows are left out (``device_work``)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     best = 0.0
     for _ in range(sessions):
         with torch.profiler.profile(activities=acts) as prof:
             fn()
             sync(device)
-        best = max(best, sum(ev.self_device_time_total for ev in prof.key_averages()
-                             if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3)
+        best = max(best, sum(ev.self_device_time_total
+                             for ev in device_work(prof.key_averages())) / 1e3)
     return best
 
 
