@@ -5,7 +5,7 @@
 1. Prints the card (``nvidia-smi`` name and power limit) and versions.
 2. Builds the CUDA kernels from ``deepfake_vit_tpu_torch/csrc`` (one nvcc
    per source, in parallel).
-3. Holds each of the twelve kernels against its plain PyTorch version at
+3. Holds each of the fifteen kernels against its plain PyTorch version at
    the serving paths' shapes and times kernel, plain version and, where one
    PyTorch call computes the same function, that call (``F.grid_sample``,
    ``torch._int_mm``: yardsticks the port never calls) with CUDA events:
@@ -33,7 +33,12 @@
    groups) and single-block prototype within two bf16 steps of the value
    (their 1×1 products sum in another order than the plain versions', on
    the tensor cores); the share of elements that differ at all is printed
-   beside the largest difference. A warp geometry phase runs every warp construction on rolls of
+   beside the largest difference. The B4's three BatchNorm epilogue kernels
+   (BatchNorm + SiLU, BatchNorm + residual, the squeeze-excite gate) bit for
+   bit at the served shapes (``EPILOGUE_SHAPES``), beside eager
+   ``F.batch_norm`` as the yardstick; their launches in one served B4 batch
+   (128) and one ViT batch (0); the B4 classifier's device time at B = 128
+   split into convolutions, epilogue kernels and the rest. A warp geometry phase runs every warp construction on rolls of
    0°, 30°, 90° and 180°, a mirror, sources wholly and partly outside and a
    whole-frame down-scale, bit for bit, and prints which tiles staged their
    source box and which read from device memory (both must run). Prints,
@@ -267,6 +272,7 @@ KERNEL_CLASSES = (
     ("int8_conv (port kernel)", ("int8_conv_kernel",)),
     ("fused_stem (port kernel)", ("fused_stem_kernel",)),
     ("fused_block (port kernel)", ("fused_block_pass_kernel", "fused_se_kernel")),
+    ("BatchNorm epilogues (port kernels)", ("bn_act_kernel", "bn_add_kernel", "se_gate_kernel")),
     ("convolution", ("conv", "xmma", "cudnn", "implicit", "winograd", "dgrad", "fprop", "nhwc", "nchw")),
     ("matmul", ("gemm", "cutlass", "sm90", "sm80")),
     ("reduction", ("reduce", "mean", "sum", "max", "norm")),
@@ -859,6 +865,136 @@ def check_fused(fs, fm, dev, check_launches: bool = True):
     block_rows = [block_case("run_block", *case) for case in FUSED_BLOCKS]
     proto_rows = [block_case("fused_mbconv", "b4", *case) for case in PROTO_BLOCKS]
     return stem_rows, block_rows, proto_rows
+
+
+# The B4's BatchNorm epilogues at the served shapes (B = 128, 224² faces):
+# kernel, C, side, which one. Launches a served B4 batch, by kernel: the
+# stem, 30 expands, 32 depthwise and the head; 32 bn2 (25 with the
+# residual); 32 gates. A ViT batch launches none.
+EPILOGUE_SHAPES = (("bn_act", 144, 112, "block 2's expand"), ("bn_act", 1792, 7, "the head"),
+                   ("bn_add", 32, 56, "block 3's bn2 + residual"),
+                   ("bn_add", 448, 7, "block 31's bn2 + residual"),
+                   ("se_gate", 144, 56, "block 2's gate"), ("se_gate", 2688, 7, "block 31's gate"))
+EPILOGUE_LAUNCHES = {"bn_act": 64, "bn_add": 32, "se_gate": 32}
+# Kernel-name fragments of the classifier's device time, first match wins.
+CLASSIFIER_CLASSES = (
+    ("epilogue kernels", ("bn_act_kernel", "bn_add_kernel", "se_gate_kernel")),
+    ("convolutions", ("conv", "xmma", "cudnn", "implicit", "nhwc", "nchw", "sm90", "sm80")),
+    ("PyTorch elementwise", ("elementwise",)),
+)
+
+
+def epilogue_case(be, kind: str, C: int, H: int, dev, B: int = 128):
+    """Seeded inputs of one epilogue: the kernel call, its plain version, the
+    library yardstick (eager F.batch_norm on the same channels-last tensor,
+    then F.silu or the residual add; none for the gate, whose eager form is
+    the plain version) and the bytes it must move."""
+    import torch.nn.functional as F
+
+    # Activations and statistics of a served network's scale (BatchNorm
+    # outputs within about ±15): past about -88 expf overflows and the
+    # division takes its slow path, which the GPU tests cover and served
+    # batches do not meet.
+    g = torch.Generator(device="cpu").manual_seed(C * H)
+    x = (2.0 * torch.randn((B, H, H, C), generator=g)).to(dev, torch.bfloat16).permute(0, 3, 1, 2)
+    weight, bias = torch.exp(0.5 * torch.randn(C, generator=g)), 0.5 * torch.randn(C, generator=g)
+    mean, var = 0.5 * torch.randn(C, generator=g), torch.exp(0.5 * torch.randn(C, generator=g))
+    weight, bias, mean, var = (t.to(dev) for t in (weight, bias, mean, var))
+    factors = torch.stack([mean, torch.rsqrt(var + 1e-3) * weight, bias])
+    numel = x.numel()
+
+    def lib_bn():
+        return F.batch_norm(x, mean, var, weight, bias, False, 0.0, 1e-3)
+
+    if kind == "bn_act":
+        return (lambda: be.bn_act(x, factors), lambda: be.bn_act_plain(x, factors),
+                lambda: F.silu(lib_bn()), 4 * numel + 12 * C)
+    if kind == "bn_add":
+        r = (2.0 * torch.randn((B, H, H, C), generator=g)).to(dev, torch.bfloat16)
+        r = r.permute(0, 3, 1, 2)
+        return (lambda: be.bn_add(x, factors, r), lambda: be.bn_add_plain(x, factors, r),
+                lambda: lib_bn() + r, 6 * numel + 12 * C)
+    gate = torch.sigmoid((3.0 * torch.randn((B, C), generator=g)).to(dev, torch.bfloat16))
+    return (lambda: be.se_gate(x, gate), lambda: be.se_gate_plain(x, gate), None,
+            4 * numel + 2 * B * C)
+
+
+def check_epilogues(dev) -> dict:
+    """The three epilogue kernels at EPILOGUE_SHAPES, bit for bit against
+    their plain versions and timed beside them, their bound and the
+    library yardstick; their launches in one served B4 batch (path B) and
+    one ViT batch (path I); the classifier's device time at B = 128 split
+    into convolutions, epilogue kernels, PyTorch's elementwise kernels and
+    the rest (``pipe.model`` on 128 drawn faces, as ``_classify`` calls it)."""
+    from deepfake_vit_tpu_torch.ops import bn_epilogue as be
+
+    rows = {"bn_act": [], "bn_add": [], "se_gate": []}
+    for kind, C, H, what in EPILOGUE_SHAPES:
+        run, run_plain, lib, nbytes = epilogue_case(be, kind, C, H, dev)
+        got = run()
+        torch.cuda.synchronize()
+        want = run_plain()
+        if not torch.equal(got, want):
+            diff = (got.float() - want.float()).abs()
+            fail(f"{kind} at {what} differs from its plain version in {int((diff > 0).sum())} "
+                 f"of {got.numel()} elements, worst {float(diff.max())}")
+        del got, want
+        t, d = time_ms(run), device_ms(run, f"{kind}_kernel")
+        one_launch(kind, d, f"{kind}_kernel")
+        plain = time_ms(run_plain, iters=5, repeats=3)
+        lib_t = lib_d = None
+        if lib is not None:
+            lib_t, lib_d = time_ms(lib), device_ms(lib)
+        b_ms, by = bound(nbytes)
+        shape = f"{what}: (128, {C}, {H}, {H}) bf16 channels-last"
+        print(f"{kind} {shape}: bit for bit; kernel_ms {fmt(t)} device_ms {fmt_dev(d)} plain_ms "
+              f"{fmt(plain)} bound_ms {b_ms:.4f} ({by}, {nbytes / 1e9:.3f} GB) -> "
+              f"{b_ms / d['ms']:.1%} of the bound; library (eager F.batch_norm, the port never "
+              f"calls it) "
+              + (f"{fmt(lib_t)} ms, device {fmt_dev(lib_d)}" if lib is not None else "none"))
+        rows[kind].append({
+            "shape": shape, "max_abs_err": 0.0, "ms": t["median"], "ms_range": [t["min"], t["max"]],
+            "device_ms": d["ms"], "plain_ms": plain["median"], "bound_ms": b_ms, "bound_by": by,
+            "bound_share": b_ms / d["ms"], "library_ms": lib_t and lib_t["median"],
+            "library_device_ms": lib_d and lib_d["ms"],
+            "library_device_launches": lib_d and lib_d["launches"]})
+    torch.cuda.empty_cache()
+    counters = (be.bn_act, be.bn_add, be.se_gate)
+    frames = seeded_batches(128, 1, 128)[0]
+    launches, split = {}, {}
+    for path, want in (("B default pooled warp", EPILOGUE_LAUNCHES),
+                       (I_PATH, dict.fromkeys(EPILOGUE_LAUNCHES, 0))):
+        pipe = build_pipeline(path)
+        warm_up(pipe, frames)
+        for k in counters:
+            k.launches = 0
+        serve(pipe, [frames])
+        launches[path] = {k.__name__: k.launches for k in counters}
+        print(f"epilogue launches in one served batch of path {path}: {launches[path]}")
+        if launches[path] != want:
+            fail(f"path {path}: epilogue launches {launches[path]}, expected {want}")
+        if path == I_PATH:
+            break
+        g = torch.Generator(device="cpu").manual_seed(11)
+        faces = torch.randn((128, *POOL_FACE, 3), generator=g).to(dev)
+        lms = (torch.rand((128, 5, 2), generator=g) * POOL_FACE[0]).to(dev)
+
+        def classify():
+            with torch.inference_mode():
+                pipe.model(faces, lms)
+
+        d = device_ms(classify, iters=5)
+        by_class = defaultdict(float)
+        for name, k in d["kernels"].items():
+            by_class[classify_kernel(name, CLASSIFIER_CLASSES + (("rest", ("",)),))] += k["ms"]
+        split = {"device_ms": d["call_ms"], "launches": d["launches"], **by_class,
+                 "top": sorted(((k["ms"], n[:90]) for n, k in d["kernels"].items()),
+                               reverse=True)[:8]}
+        print(f"the B4 classifier at B = 128: {d['call_ms']:.3f} device ms in {d['launches']:g} "
+              f"launches: " + ", ".join(f"{c} {ms:.3f}" for c, ms in by_class.items()))
+        del pipe
+        torch.cuda.empty_cache()
+    return {"rows": rows, "launches": launches, "classifier_split": split}
 
 
 # The stem at path C's faces (B = 128, 192²) and path D's (B = 32, 224²).
@@ -3298,6 +3434,7 @@ def main() -> None:
         fail(f"path A launched {len(convs)} detector convolutions, K-major kernels {k_major}")
     conv_rows = check_int8_conv(ik, dev, convs, k_major)
     stem_rows, block_rows, proto_rows = check_fused(fs, fm, dev)
+    epilogues = check_epilogues(dev)
     s2d_context = s2d_prefix_context(dev)
     torch.cuda.empty_cache()
 
@@ -3531,6 +3668,9 @@ def main() -> None:
             c_launches["run_block"], block_rows[0], block_rows),
         row("fused_mbconv", "fused.cu", "deepfake_vit_tpu/ops/pallas/fused_mbconv.py:60",
             proto_launches, proto_rows[0], proto_rows),
+        *(row(name, "epilogue.cu", "none: XLA fused these passes in the JAX package",
+              epilogues["launches"]["B default pooled warp"][name], shapes[0], shapes)
+          for name, shapes in epilogues["rows"].items()),
     ]}
     if any(k["launches"] < 1 for k in report["kernels"]):
         fail(f"a kernel was never launched: {[(k['name'], k['launches']) for k in report['kernels']]}")
@@ -3544,7 +3684,7 @@ def main() -> None:
              "warp_geometry": geometry_rows,
              "crop_pool": pool_rows, "card_vs_cpu": card_vs_cpu_err, "paths": paths,
              "device_launches_per_fused_block": fs.LAUNCHES_PER_BLOCK,
-             "s2d_context": s2d_context, "predictor": predictor,
+             "s2d_context": s2d_context, "epilogues": epilogues, "predictor": predictor,
              "whole_frame_warp": whole_rows, "preprocessing_pipeline": pipeline,
              "training": training, "predictor_families": families, "detector_bars": bars,
              "detector_training": detector_training, "loaders": loaders,

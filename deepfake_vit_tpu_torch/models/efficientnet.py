@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.bn_epilogue import bn_residual, se_scale, silu_bn
 from .layers import BatchNorm, Conv, drop_connect, dropout
 
 # Base (B0) stages: (num_repeat, kernel, stride, expand_ratio, in, out, se_ratio)
@@ -83,7 +84,12 @@ def feature_dim(variant: str) -> int:
 
 
 class MBConvBlock(nn.Module):
-    """Mobile inverted bottleneck with squeeze-excitation, NCHW."""
+    """Mobile inverted bottleneck with squeeze-excitation, NCHW.
+
+    In inference on bf16 channels-last CUDA activations each BatchNorm
+    with what follows it (SiLU, the squeeze-excite gate, the residual) is
+    one hand-written pass (``ops/bn_epilogue.py``); anywhere else the
+    eager expression runs."""
 
     def __init__(self, kernel: int, stride: int, expand_ratio: int, in_filters: int,
                  out_filters: int, se_ratio: float, drop_rate: float = 0.0,
@@ -108,18 +114,17 @@ class MBConvBlock(nn.Module):
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         inputs = x
         if self.expand_ratio != 1:
-            x = F.silu(self.bn0(self.expand_conv(x)))
-        x = F.silu(self.bn1(self.depthwise_conv(x)))
+            x = silu_bn(self.expand_conv(x), self.bn0)
+        x = silu_bn(self.depthwise_conv(x), self.bn1)
         if self.se_ratio > 0:
             se = x.mean(dim=(2, 3), keepdim=True)
-            se = self.se_expand(F.silu(self.se_reduce(se)))
-            x = x * torch.sigmoid(se)
-        x = self.bn2(self.project_conv(x))
-        if self.residual:
-            if self.training and self.drop_rate > 0:
-                x = drop_connect(x, self.drop_rate, generator)
-            x = x + inputs
-        return x
+            x = se_scale(x, self.se_expand(F.silu(self.se_reduce(se))), self.bn1)
+        x = self.project_conv(x)
+        if not self.residual:
+            return bn_residual(x, self.bn2)
+        if self.training and self.drop_rate > 0:
+            return drop_connect(self.bn2(x), self.drop_rate, generator) + inputs
+        return bn_residual(x, self.bn2, inputs)
 
 
 class EfficientNetBackbone(nn.Module):
@@ -185,13 +190,13 @@ class EfficientNetBackbone(nn.Module):
         x = x.to(dtype or self.dtype)
         if start_block == 0:
             x = x.permute(0, 3, 1, 2)
-            x = F.silu(self.stem_bn(self.stem_conv(x)))
+            x = silu_bn(self.stem_conv(x), self.stem_bn)
         last = len(self.blocks) if stop_block is None else stop_block
         for idx in range(start_block, last):
             x = getattr(self, f"block_{idx}")(x, generator)
         if stop_block is not None:
             return x
-        maps = F.silu(self.head_bn(self.head_conv(x)))
+        maps = silu_bn(self.head_conv(x), self.head_bn)
         if return_maps:
             return maps
         pooled = maps.mean(dim=(2, 3))

@@ -42,6 +42,7 @@ _SIGNATURES = {
     "dfv_fused_stem": [*[_P] * 4, *[_I] * 9, _P],
     "dfv_fused_block": [*[_P] * 14, *[_I] * 11, _P],
     "dfv_fused_mbconv": [*[_P] * 14, *[_I] * 9, _P],
+    "dfv_epilogue": [*[_P] * 4, *[_I] * 6, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -122,4 +123,7 @@ def check(err: int, name: str) -> None:
 
 
 def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current CUDA stream's handle: ``torch.cuda.current_stream().
+    cuda_stream`` without building a Stream object (measured beside an
+    H100: 0.12 µs a call against 6.4)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())

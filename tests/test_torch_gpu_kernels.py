@@ -14,6 +14,7 @@ import torch
 
 from deepfake_vit_tpu_torch.models.efficientnet import EfficientNetBackbone, MBConvBlock, block_args
 from deepfake_vit_tpu_torch.models.layers import BatchNorm, init_weights
+from deepfake_vit_tpu_torch.ops import bn_epilogue as be
 from deepfake_vit_tpu_torch.ops import fused_mbconv as fm
 from deepfake_vit_tpu_torch.ops import fused_stages as fs
 from deepfake_vit_tpu_torch.ops import int8_kernel as ik
@@ -528,6 +529,146 @@ def test_fused_mbconv_kernel_matches_plain(dev, args, h, B):
     _assert_two_bf16_steps(got, fm.fused_mbconv_plain(x, folded, args["expand_ratio"]))
 
 
+# The B4's epilogues at 224² faces, B = 128 (and ragged batches): kernel,
+# C, side. bn_act: the stem, block 2's expand (the largest), a depthwise
+# output, the widest expand, the head; bn_add with the residual at each
+# stage's width, and without; the gate at each stage's expanded width.
+EPILOGUE_CASES = [
+    ("bn_act", 128, 48, 112), ("bn_act", 128, 144, 112), ("bn_act", 128, 192, 56),
+    ("bn_act", 128, 672, 14), ("bn_act", 128, 2688, 7), ("bn_act", 128, 1792, 7),
+    ("bn_act", 5, 144, 112), ("bn_act", 3, 8, 1),
+    ("bn_residual", 128, 24, 112), ("bn_residual", 128, 32, 56), ("bn_residual", 128, 56, 28),
+    ("bn_residual", 128, 112, 14), ("bn_residual", 128, 160, 14), ("bn_residual", 128, 272, 7),
+    ("bn_residual", 128, 448, 7), ("bn_residual", 7, 56, 28),
+    ("bn", 128, 32, 56), ("bn", 128, 272, 7), ("bn", 3, 160, 14),
+    ("se_gate", 128, 144, 56), ("se_gate", 128, 336, 28), ("se_gate", 128, 960, 14),
+    ("se_gate", 128, 2688, 7), ("se_gate", 5, 672, 14),
+]
+
+
+def _epilogue_inputs(kind, B, C, H, dev, seed):
+    """bf16 channels-last x (wide enough that SiLU meets both tails),
+    a BatchNorm away from the identity, a residual, a gate through the
+    sigmoid."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = (4.0 * torch.randn((B, H, H, C), generator=g)).to(dev, torch.bfloat16).permute(0, 3, 1, 2)
+    bn = BatchNorm(C, 1e-3).eval()
+    with torch.no_grad():
+        bn.weight.copy_(torch.exp(torch.randn(C, generator=g)))
+        bn.bias.copy_(torch.randn(C, generator=g))
+        bn.running_mean.copy_(torch.randn(C, generator=g))
+        bn.running_var.copy_(torch.exp(torch.randn(C, generator=g)))
+    other = None
+    if kind == "bn_residual":
+        other = (2.0 * torch.randn((B, H, H, C), generator=g)).to(dev, torch.bfloat16)
+        other = other.permute(0, 3, 1, 2)
+    elif kind == "se_gate":
+        other = torch.sigmoid((3.0 * torch.randn((B, C), generator=g)).to(dev, torch.bfloat16))
+    return x, be.bn_factors(bn.to(dev)), other
+
+
+@pytest.mark.parametrize("kind,B,C,H", EPILOGUE_CASES,
+                         ids=[f"{k}-B{b}-C{c}-{h}" for k, b, c, h in EPILOGUE_CASES])
+def test_epilogue_kernels_match_plain(dev, kind, B, C, H):
+    """Bit for bit against the plain versions (PyTorch's own kernels on the
+    card), one device launch a call, the output channels-last."""
+    x, factors, other = _epilogue_inputs(kind, B, C, H, dev, B * C + H)
+    if kind == "bn_act":
+        fn, call, plain = be.bn_act, lambda: be.bn_act(x, factors), be.bn_act_plain(x, factors)
+    elif kind == "se_gate":
+        fn, call, plain = be.se_gate, lambda: be.se_gate(x, other), be.se_gate_plain(x, other)
+    else:
+        fn, call = be.bn_add, lambda: be.bn_add(x, factors, other)
+        plain = be.bn_add_plain(x, factors, other)
+    before = fn.launches
+    got = call()
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    diff = (got.float() - plain.float()).abs()
+    assert torch.equal(got, plain), (f"{int((diff > 0).sum())} of {got.numel()} differ, worst "
+                                     f"{float(diff.max())}")
+    launched = _device_launches(call)
+    assert len(launched) == 1 and ("bn_" in launched[0] or "se_gate" in launched[0]), launched
+
+
+def _b4_with_bns(B4_seed=3):
+    return _randomize_bn(init_weights(EfficientNetBackbone("b4", dtype=torch.bfloat16), B4_seed),
+                         B4_seed + 1)
+
+
+def test_b4_backbone_with_the_epilogue_kernels_equals_the_eager_path(dev, monkeypatch):
+    """The whole B4 at B = 8 in inference: 64 + 32 + 32 launches, the
+    features equal the eager path's (the kernels switched off) bit for bit."""
+    bb = _b4_with_bns().to(dev).eval()
+    images = torch.randn((8, 224, 224, 3), generator=torch.Generator().manual_seed(5)).to(dev)
+    counts = (be.bn_act.launches, be.bn_add.launches, be.se_gate.launches)
+    with torch.inference_mode():
+        got = bb(images)
+    torch.cuda.synchronize()
+    assert tuple(n - c for n, c in zip((be.bn_act.launches, be.bn_add.launches,
+                                         be.se_gate.launches), counts)) == (64, 32, 32)
+    monkeypatch.setattr(be, "engages", lambda *a, **k: False)
+    with torch.inference_mode():
+        want = bb(images)
+    assert torch.equal(got, want)
+
+
+def test_train_step_takes_no_epilogue_kernel(dev, monkeypatch):
+    """A bf16 channels-last train step of a B4 (train mode, autograd):
+    no launch, and the loss and every gradient equal those of the eager path
+    (deterministic cuDNN, so that two runs sum in one order)."""
+    bb = _b4_with_bns().to(dev).train()
+    bb.drop_connect_rate = 0.0
+    images = torch.randn((4, 64, 64, 3), generator=torch.Generator().manual_seed(6)).to(dev)
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+
+    def step():
+        bb.zero_grad(set_to_none=True)
+        loss = bb(images, return_maps=False, generator=torch.Generator(device=dev).manual_seed(0))
+        loss = loss.float().square().mean()
+        loss.backward()
+        return loss.detach(), [p.grad.clone() for p in bb.parameters() if p.grad is not None]
+
+    try:
+        counts = (be.bn_act.launches, be.bn_add.launches, be.se_gate.launches)
+        loss, grads = step()
+        assert (be.bn_act.launches, be.bn_add.launches, be.se_gate.launches) == counts
+        monkeypatch.setattr(be, "engages", lambda *a, **k: False)
+        want_loss, want_grads = step()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    assert torch.equal(loss, want_loss) and len(grads) == len(want_grads) > 0
+    assert all(torch.equal(a, b) for a, b in zip(grads, want_grads))
+
+
+def test_epilogue_kernels_replay_in_a_captured_graph(dev):
+    """The B4 backbone captured in a CUDA graph at B = 4: a replay on new
+    images equals the eager call with the kernels."""
+    bb = _b4_with_bns().to(dev).eval()
+    g = torch.Generator().manual_seed(7)
+    static = torch.randn((4, 224, 224, 3), generator=g).to(dev)
+    fresh = torch.randn((4, 224, 224, 3), generator=g).to(dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.inference_mode():
+        for _ in range(2):
+            bb(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = be.bn_act.launches
+    with torch.inference_mode():
+        with torch.cuda.graph(graph):
+            out = bb(static)
+        assert be.bn_act.launches == before + 64
+        static.copy_(fresh)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = bb(fresh)
+    assert torch.equal(out, want)
+
+
 def test_kernels_reject_wrong_inputs(dev):
     z = torch.zeros(1, dtype=torch.int32, device=dev)
     with pytest.raises(TypeError):
@@ -564,6 +705,12 @@ def test_kernels_reject_wrong_inputs(dev):
         fs.run_block(bp, x.float(), w)
     with pytest.raises(ValueError):
         fs.run_block(bp, x, [w[0].cpu()] + w[1:])  # w_exp on the CPU
+    xe, fe, _ = _epilogue_inputs("bn_act", 2, 16, 4, dev, 0)
+    with pytest.raises(ValueError):
+        be.bn_act(xe, fe.cpu())  # factors on the CPU
+    with pytest.raises(ValueError):
+        be.bn_act(torch.zeros(2 * 16 * 16 + 1, dtype=torch.bfloat16, device=dev)[1:].view(
+            2, 4, 4, 16).permute(0, 3, 1, 2), fe)  # 2-byte aligned
     with pytest.raises(ValueError):
         fs.run_stem(torch.zeros((1, 8, 8, 3), dtype=torch.bfloat16, device=dev),
                     [torch.zeros((48, 27), dtype=torch.bfloat16), torch.zeros(48, device=dev)])
