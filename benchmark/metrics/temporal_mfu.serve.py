@@ -1,0 +1,16 @@
+"""The clip classifier's temporal halves' share of the card's bf16 peak:
+their operations a batch (QKV, QKᵀ, ·V, the output projection and
+``Dense_td``, ``counts_clips.temporal_flops`` for each clip) over the
+device time of the kernels in the ``classify.temporal`` spans a batch and
+989 TFLOP/s. None without the spans or the count. Moves
+``faces_per_s``."""
+
+from benchmark.peaks import BF16_FLOPS
+
+
+def read(sl, ctx):
+    ms = sl.range_ms("classify.temporal")
+    flops = ctx.get("temporal_flops_per_step")
+    if ms is None or not flops:
+        return None
+    return 100.0 * flops / (ms / sl.steps * 1e-3) / BF16_FLOPS

@@ -32,6 +32,16 @@ options, which act on EfficientNet blocks, raise a ``ValueError`` (the
 JAX class fails there on a missing ``batch_stats`` collection);
 ``make_sharded(mesh)``, the frame batch split over the mesh's devices in
 one process, one replica of the pipeline a device.
+
+Beyond the JAX class: the TimeSformer clip classifier (``model.type:
+timesformer``, ``models/timesformer.py``), which gives one verdict for
+each T consecutive frames of a batch (a face track, T the model's
+``num_frames``). The batch is then B/T clips: each frame slot carries its
+clip's ``probs`` and ``features``, ``clip_probs`` and ``clip_features`` are
+(B/T, …), and the pipeline counts ``clips`` and ``partial_clips``. It
+takes the warp options only, ``keep_top_k`` 1 (K faces a frame would need
+a tracker to make clips of), no flax classifier checkpoint (the JAX
+package has no such family), and batches and stripes of whole clips.
 """
 
 from __future__ import annotations
@@ -133,13 +143,18 @@ class FusedPipeline:
                              f"expected one of {sorted(WARP_KERNELS)}")
         if keep_top_k < 1:
             raise ValueError(f"keep_top_k must be at least 1, got {keep_top_k}")
-        if model_config.get("model", {}).get("type") == "vit":
+        kind = model_config.get("model", {}).get("type")
+        if kind in ("vit", "timesformer"):
             blocks = [name for name, on in (("use_fused_backbone", use_fused_backbone),
                                             ("use_int8_tail", use_int8_tail),
                                             ("use_s2d_early", use_s2d_early)) if on]
             if blocks:
+                family = "a ViT" if kind == "vit" else "a TimeSformer"
                 raise ValueError(f"{', '.join(blocks)} act on EfficientNet blocks; "
-                                 "a ViT classifier takes none of them")
+                                 f"{family} classifier takes none of them")
+        if kind == "timesformer" and keep_top_k > 1:
+            raise ValueError(f"keep_top_k={keep_top_k}: a TimeSformer classifies the clip of one "
+                             "face track, and K faces a frame would need a tracker to make one")
         self.device = resolve_device(device)
         self.dtype = dtype
         self.input_size = tuple(detection_input_size)
@@ -184,6 +199,12 @@ class FusedPipeline:
         self.model = create_model_from_config(model_config.get("model", {}),
                                               dtype=dtype).to(self.device).eval()
         self._initialized = False
+        # A clip classifier's frames a clip (None: one verdict a frame) and
+        # its counters: clips served, and those with a frame without a face
+        # (a count kept on the device, so counting reads nothing back).
+        self.clip_frames: Optional[int] = self.model.num_frames if kind == "timesformer" else None
+        self.clips = 0
+        self._partial_clips: Optional[torch.Tensor] = None
 
         centers, strides = all_anchor_centers(self.input_size)
         self._centers = torch.as_tensor(centers, device=self.device)
@@ -212,8 +233,14 @@ class FusedPipeline:
         ``detector_weights="default"`` loads the committed weights of the
         pipeline's detector family (None keeps the seeded init);
         ``classifier_checkpoint`` is a framework checkpoint (msgpack with
-        ``params`` and, but for a ViT, ``batch_stats``).
+        ``params`` and, but for a ViT, ``batch_stats``); a TimeSformer has
+        none (load its weights with ``load_state_dict`` or
+        ``models.timesformer.load_hf_timesformer`` afterwards).
         """
+        if classifier_checkpoint and self.clip_frames:
+            raise ValueError("no flax checkpoint exists for a TimeSformer classifier (the JAX "
+                             "package has no such family); load its state dict after "
+                             "load_variables")
         self.init_variables(seed)
         if detector_weights == "default":
             detector_weights = default_weights_path(self.detector_arch)
@@ -311,17 +338,43 @@ class FusedPipeline:
         While ``torch.profiler`` records, the call is a ``serve.forward``
         range holding one range a stage, in order: ``serve.frames_in``,
         ``serve.canvas``, ``serve.detect``, ``serve.align``,
-        ``serve.quality`` and ``serve.classify`` (``utils/profiling.py``)."""
+        ``serve.quality`` and ``serve.classify`` (``utils/profiling.py``).
+        With a clip classifier B is a multiple of its frames a clip."""
         if not self._initialized:
             raise RuntimeError("call init_variables or load_variables before forward")
         with annotate("serve.forward"):
             ensure_eval(self.detector, self.model)
             with annotate("serve.frames_in"):
-                frames = torch.as_tensor(frames).to(self.device)
-            return self._graph(frames)
+                frames = torch.as_tensor(frames)
+                self._check_clips(frames.shape[0])
+                frames = frames.to(self.device)
+            out = self._graph(frames)
+            self._count_clips(out["has_face"])
+            return out
 
     def _graph(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self._classify(self._detect_align(frames))
+
+    def _check_clips(self, n: int) -> None:
+        if self.clip_frames and n % self.clip_frames:
+            raise ValueError(f"{n} frames do not make whole clips of {self.clip_frames}: a "
+                             "TimeSformer classifies each clip of consecutive frames")
+
+    def _count_clips(self, has_face: torch.Tensor) -> None:
+        """A clip classifier's counters, from a served batch's face flags."""
+        if not self.clip_frames:
+            return
+        partial = (~has_face.view(-1, self.clip_frames)).any(dim=1).sum()
+        self.clips += has_face.shape[0] // self.clip_frames
+        if self._partial_clips is not None:
+            partial = partial + self._partial_clips.to(partial.device)
+        self._partial_clips = partial
+
+    @property
+    def partial_clips(self) -> int:
+        """Clips served with a frame in which no face was found (waits for
+        the device's count)."""
+        return 0 if self._partial_clips is None else int(self._partial_clips)
 
     def _detect_align(self, frames: torch.Tensor) -> Dict[str, Any]:
         """Stages 0-3: detection, alignment, quality; the state stage 4 takes.
@@ -449,6 +502,11 @@ class FusedPipeline:
             else:
                 logits, features = self.model(norm, aligned_lms)
             probs = torch.softmax(logits, dim=-1)
+            clips = {}
+            if self.clip_frames:  # one verdict a clip, carried to each of its frame slots
+                clips = {"clip_probs": probs, "clip_features": features}
+                probs = probs.repeat_interleave(self.clip_frames, dim=0)
+                features = features.repeat_interleave(self.clip_frames, dim=0)
             out = {
                 "has_face": has_face,
                 "confidence": st["confidence"],
@@ -459,6 +517,7 @@ class FusedPipeline:
                 "probs": probs,
                 "fake_prob": torch.where(has_face, probs[:, 1], torch.zeros_like(probs[:, 1])),
                 "features": features,
+                **clips,
             }
             if K > 1:
                 # (B·K, …) → (B, K, …); the validity mask also under its config name.
@@ -505,8 +564,9 @@ class FusedPipeline:
         by its maximum over the whole batch, as in ``forward`` and the JAX
         function's global arrays: the replicas' maxima are taken after
         their detection and alignment and shared on the devices, ordered
-        by stream waits, before their classifiers run. A mesh of one
-        device returns ``forward`` itself."""
+        by stream waits, before their classifiers run. With a clip
+        classifier each stripe holds whole clips. A mesh of one device
+        returns ``forward`` itself."""
         if mesh.size <= 1:
             return self.forward
         if mesh.distributed:
@@ -536,6 +596,8 @@ class FusedPipeline:
                 raise ValueError(f"a batch of {frames.shape[0]} frames does not split into "
                                  f"{n} equal stripes")
             k = frames.shape[0] // n
+            if self.clip_frames and k % self.clip_frames:
+                raise ValueError(f"stripes of {k} frames cut clips of {self.clip_frames}")
             if cuda:  # what the callers' streams queued comes first
                 for i, d in enumerate(devices):
                     streams[i].wait_stream(torch.cuda.current_stream(d))
@@ -573,22 +635,39 @@ class FusedPipeline:
                 for out in outs:
                     for t in out.values():
                         t.record_stream(main)
-            return {key: torch.cat([out[key].to(devices[0]) for out in outs])
-                    for key in outs[0]}
+            out = {key: torch.cat([out[key].to(devices[0]) for out in outs])
+                   for key in outs[0]}
+            self._count_clips(out["has_face"])
+            return out
 
         return sharded
 
     # ------------------------------------------------------------------
     def predict_clip(self, frames, threshold: float = 0.5) -> Dict[str, Any]:
-        """Clip-level aggregation: mean fake-prob over frames with faces."""
+        """Clip-level aggregation: mean fake-prob over frames with faces.
+
+        With a clip classifier the frames are whole clips of its length:
+        the verdict of one clip is its own, that of several the mean over
+        the clips with a face in any frame (``clip_probs`` lists each
+        clip's fake probability); fewer frames than a clip are refused."""
+        if self.clip_frames and len(frames) < self.clip_frames:
+            raise ValueError(f"{len(frames)} frames are fewer than the {self.clip_frames} of "
+                             "one clip")
         out = self.forward(frames)
         mask = out["has_face"].float().cpu().numpy()
         fake_probs = out["fake_prob"].float().cpu().numpy()
-        denom = max(mask.sum(), 1.0)
-        fake = float((fake_probs * mask).sum() / denom)
+        clip = {}
+        if self.clip_frames:
+            weights = mask.reshape(-1, self.clip_frames).max(axis=1)
+            probs = out["clip_probs"][:, 1].float().cpu().numpy()
+            clip = {"clip_probs": probs.tolist()}
+        else:
+            weights, probs = mask, fake_probs
+        fake = float((probs * weights).sum() / max(weights.sum(), 1.0))
         return {
             "label": int(fake >= threshold and mask.sum() > 0),
             "fake_prob": fake,
             "num_faces": int(mask.sum()),
             "frame_probs": fake_probs.tolist(),
+            **clip,
         }

@@ -108,7 +108,11 @@ def create_model_from_config(model_cfg: Dict[str, Any],
     function reads them. ``type: vit`` builds the fallback
     ``ViTClassifier`` from ``feature_extractor.{variant, image_size,
     dropout_rate}`` (defaults base16, 224, 0.0) and
-    ``classifier.num_classes``. Both return ``(logits, features)``.
+    ``classifier.num_classes``. ``type: timesformer`` builds the clip
+    classifier ``TimeSformerClassifier`` from ``feature_extractor.{variant,
+    image_size, num_frames, dropout_rate}`` (defaults base16, 224, 8, 0.0)
+    and ``classifier.num_classes``: one verdict a clip of ``num_frames``
+    consecutive faces. All return ``(logits, features)``.
     Serving objects put the model in eval mode; a trainer calls
     ``train()``."""
     kind = model_cfg.get("type", "efficientnet")
@@ -121,8 +125,17 @@ def create_model_from_config(model_cfg: Dict[str, Any],
                              num_classes=clf.get("num_classes", 2),
                              image_size=int(fe.get("image_size", 224)),
                              dropout=float(fe.get("dropout_rate", 0.0)), dtype=dtype)
+    if kind == "timesformer":
+        from .timesformer import TimeSformerClassifier
+
+        return TimeSformerClassifier(variant=fe.get("variant", "base16"),
+                                     num_frames=int(fe.get("num_frames", 8)),
+                                     image_size=int(fe.get("image_size", 224)),
+                                     num_classes=clf.get("num_classes", 2),
+                                     dropout=float(fe.get("dropout_rate", 0.0)), dtype=dtype)
     if kind != "efficientnet":
-        raise ValueError(f"unknown model type {kind!r}; expected 'efficientnet' or 'vit'")
+        raise ValueError(f"unknown model type {kind!r}; expected 'efficientnet', 'vit' or "
+                         "'timesformer'")
     attn = fe.get("attention_config", {}) or {}
     return DeepfakeDetectionModel(
         num_classes=clf.get("num_classes", 2),
