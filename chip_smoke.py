@@ -5,7 +5,7 @@
 1. Prints the card (``nvidia-smi`` name and power limit) and versions.
 2. Builds the CUDA kernels from ``deepfake_vit_tpu_torch/csrc`` (one nvcc
    per source, in parallel).
-3. Holds each of the fifteen kernels against its plain PyTorch version at
+3. Holds each of the sixteen kernels against its plain PyTorch version at
    the serving paths' shapes and times kernel, plain version and, where one
    PyTorch call computes the same function, that call (``F.grid_sample``,
    ``torch._int_mm``: yardsticks the port never calls) with CUDA events:
@@ -38,7 +38,14 @@
    bit at the served shapes (``EPILOGUE_SHAPES``), beside eager
    ``F.batch_norm`` as the yardstick; their launches in one served B4 batch
    (128) and one ViT batch (0); the B4 classifier's device time at B = 128
-   split into convolutions, epilogue kernels and the rest. A warp geometry phase runs every warp construction on rolls of
+   split into convolutions, epilogue kernels and the rest. The transformers'
+   LayerNorm kernel within one bf16 step of its plain version at the ViT's
+   and the TimeSformer's served shapes (``LAYER_NORM_SHAPES``, the
+   TimeSformer's strided CLS rows among them), beside ``F.layer_norm`` as
+   the yardstick; its launches in one served B4 (0), ViT (25) and
+   TimeSformer (37) batch, and the LayerNorms' device ms inside each
+   transformer classifier with the kernel and without. A warp geometry
+   phase runs every warp construction on rolls of
    0°, 30°, 90° and 180°, a mirror, sources wholly and partly outside and a
    whole-frame down-scale, bit for bit, and prints which tiles staged their
    source box and which read from device memory (both must run). Prints,
@@ -236,6 +243,12 @@ EXPECTED = {path: {**dict.fromkeys(KERNEL_NAMES, 0), **counts} for path, counts 
     "I ViT-B/16, default pooled warp": {"crop_pool": 1, "warp_affine_legacy": 1},
 }.items()}
 I_PATH = "I ViT-B/16, default pooled warp"
+# TimeSformer-Base over 16 clips of 8 frames a batch (the LayerNorm check's;
+# not one of the ten paths).
+TSF_PATH = "J TimeSformer-Base, default pooled warp"
+TSF_MODEL = {"type": "timesformer",
+             "feature_extractor": {"variant": "base16", "image_size": 224, "num_frames": 8},
+             "classifier": {"num_classes": 2}}
 # The ViT fallback family at the reference's fallback size (HuggingFace
 # ViT-B/16, 224²), full width and depth, seeded.
 VIT_MODEL = {"type": "vit", "feature_extractor": {"variant": "base16", "image_size": 224},
@@ -446,7 +459,7 @@ def warp_footprint_bytes(coeffs, Hs, Ws, C, out_size) -> int:
 
 
 def build_pipeline(path: str, dtype=torch.bfloat16, device=None, scales=None):
-    """One of the ten served configurations. Paths A, E and G are
+    """One of the ten served configurations, or TSF_PATH. Paths A, E and G are
     calibrated as the JAX benchmark calibrates its headline (8 uniform-noise
     faces, 4 uniform-noise frames, seeded; G's tail on its own s2d
     activations) unless ``scales`` hands the scales over."""
@@ -463,13 +476,14 @@ def build_pipeline(path: str, dtype=torch.bfloat16, device=None, scales=None):
                              output_size=FACE, int8_act_scales=tail_scales,
                              det_act_scales=det_scales, use_s2d_early=path.startswith("G"),
                              warp_tap_mode="int8" if path.startswith("E") else "legacy", **common)
-    elif path.startswith(("B", "D", "F", "H", "I")):  # default warp arguments and face size
+    elif path.startswith(("B", "D", "F", "H", "I", "J")):  # default warp arguments and face size
         extra = (dict(detector_arch="lite", keep_top_k=MULTI_K, warp_tap_mode="uw16")
                  if path.startswith("F") else {})
         if path.startswith("H"):  # MTCNN-Lite serves at a pool ratio of 1: a 640² canvas
             extra = dict(detector_arch="mtcnn")
             common["detection_input_size"] = SERVING
-        config = {"model": VIT_MODEL} if path.startswith("I") else MODEL_CONFIG
+        config = ({"model": VIT_MODEL} if path.startswith("I") else
+                  {"model": TSF_MODEL} if path.startswith("J") else MODEL_CONFIG)
         pipe = FusedPipeline(config, use_fused_backbone=path.startswith("D"), **extra,
                              **common)
         if (pipe.warp_window, pipe.warp_fractional, pipe.output_size) != (
@@ -992,6 +1006,162 @@ def check_epilogues(dev) -> dict:
                                reverse=True)[:8]}
         print(f"the B4 classifier at B = 128: {d['call_ms']:.3f} device ms in {d['launches']:g} "
               f"launches: " + ", ".join(f"{c} {ms:.3f}" for c, ms in by_class.items()))
+        del pipe
+        torch.cuda.empty_cache()
+    return {"rows": rows, "launches": launches, "classifier_split": split}
+
+
+# The transformers' LayerNorms a served batch (B = 128 frames, 224² faces):
+# what, the shape whose rows are normalized, eps, and whether the rows are
+# x[:, 0] (the TimeSformer's CLS rows, 1,569 · 768 apart in its tokens).
+# ViT-B/16: 128 × 197 tokens; TimeSformer-Base: ln_t on 16 clips × 196
+# patches × 8 frames, ln1 on 128 frames × 197, ln2 on 16 × 1,569.
+LAYER_NORM_SHAPES = (("ViT-B/16 ln1, ln2, ln_final", (128, 197, 768), 1e-12, False),
+                     ("TimeSformer ln_t", (25088, 768), 1e-6, False),
+                     ("TimeSformer ln1", (25216, 768), 1e-6, False),
+                     ("TimeSformer ln2", (25104, 768), 1e-6, False),
+                     ("TimeSformer ln_final, CLS rows", (16, 1569, 768), 1e-6, True))
+# Launches a served batch: 2 a block and the final one; the TimeSformer's
+# ln_t besides; the B4 has no LayerNorm.
+LAYER_NORM_LAUNCHES = {"B default pooled warp": 0, I_PATH: 25, TSF_PATH: 37}
+# Inputs the timed calls take in turn (each 38.7 MB at the served shapes), so
+# that no call finds its rows in the 50 MB L2 the one before left them in.
+LAYER_NORM_ROTATION = 4
+
+
+def one_bf16_step(got: torch.Tensor, want: torch.Tensor):
+    """The largest difference, the shares of elements that differ and that
+    differ by more than one bf16 step, and whether every difference is
+    within one bf16 step of the larger value plus 2⁻¹⁶ of the largest
+    output (the kernel's float32 row sums run in another order than
+    PyTorch's; near 0 an output is the difference of terms as large as the
+    largest, whose float32 rounding outweighs a tiny value's bf16 step)."""
+    got, want = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    diff = (got - want).abs()
+    step = torch.ldexp(torch.ones_like(diff), e - 8)
+    within = bool((diff <= step + 2.0 ** -16 * want.abs().max()).all())
+    return (float(diff.max()), float((diff > 0).float().mean()),
+            float((diff > step).float().mean()), within)
+
+
+def layer_norm_split(pipe, n_faces: int, dev) -> dict:
+    """The classifier on ``n_faces`` seeded faces, as ``_classify`` calls
+    it, with the LayerNorm kernel and with the eager path (``engages``
+    false): device ms of its LayerNorms (the kernels inside one range a
+    module, or the LayerNorm kernel's) and in all, device launches, and CUDA-event ms of the call."""
+    from deepfake_vit_tpu_torch.models.layers import LayerNorm
+    from deepfake_vit_tpu_torch.ops import layer_norm as ln
+    from deepfake_vit_tpu_torch.utils.profiling import device_work
+
+    g = torch.Generator(device="cpu").manual_seed(12)
+    faces = torch.randn((n_faces, *POOL_FACE, 3), generator=g).to(dev)
+    named = {m: "LayerNorm" for m in pipe.model.modules() if isinstance(m, LayerNorm)}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+
+    def classify():
+        with torch.inference_mode():
+            pipe.model(faces)
+
+    out, engages = {}, ln.engages
+    for label in ("kernel", "eager"):
+        if label == "eager":
+            ln.engages = lambda *a: False
+        try:
+            t = time_ms(classify, iters=5, repeats=3)
+            for _ in range(3):  # a profile now and then comes back without device records
+                with module_ranges(named), torch.profiler.profile(activities=acts) as prof:
+                    classify()
+                    torch.cuda.synchronize()
+                events = prof.key_averages()
+                work = [ev for ev in device_work(events) if ev.self_device_time_total > 0]
+                if work:
+                    break
+        finally:
+            ln.engages = engages
+        # The profiler ties no kernel launched from the ctypes library to a
+        # range: the kernel's own records count for it.
+        ln_us = sum(ev.device_time_total for ev in events
+                    if ev.device_type == torch.autograd.DeviceType.CPU and ev.key == "LayerNorm")
+        ln_us += sum(ev.self_device_time_total for ev in work if "layer_norm_kernel" in ev.key)
+        out[label] = {"layer_norm_ms": ln_us / 1e3,
+                      "classifier_device_ms": sum(ev.self_device_time_total for ev in work) / 1e3,
+                      "device_launches": sum(ev.count for ev in work), "event_ms": t["median"]}
+    return out
+
+
+def check_layer_norm(dev) -> dict:
+    """The LayerNorm kernel at LAYER_NORM_SHAPES against its plain version
+    (within one bf16 step), timed beside it, its bound and ``F.layer_norm``
+    (the yardstick; the port never calls it), each over inputs taken in
+    turn past the L2; its launches in one served batch of the B4 (0), the
+    ViT (25) and the TimeSformer (37); the LayerNorms' device ms inside
+    each transformer classifier with the kernel and without."""
+    import torch.nn.functional as F
+
+    from deepfake_vit_tpu_torch.ops import layer_norm as ln
+
+    rows = []
+    for what, shape, eps, cls_rows in LAYER_NORM_SHAPES:
+        g = torch.Generator(device="cpu").manual_seed(sum(shape))
+        W = shape[-1]
+        xs = [(1.5 + 4.0 * torch.randn(shape, generator=g)).to(dev, torch.bfloat16)
+              for _ in range(LAYER_NORM_ROTATION)]
+        xs = [x[:, 0] if cls_rows else x for x in xs]
+        weight = (1.0 + 0.3 * torch.randn(W, generator=g)).to(dev)
+        bias = (0.5 * torch.randn(W, generator=g)).to(dev)
+        worst, share, near_zero, within = one_bf16_step(
+            ln.layer_norm(xs[0], weight, bias, eps), ln.layer_norm_plain(xs[0], weight, bias, eps))
+        torch.cuda.synchronize()
+        if not within:
+            fail(f"layer_norm at {what} differs from its plain version by more than one bf16 "
+                 f"step and 2^-16 of the largest output: worst {worst}")
+        turn = iter(range(10 ** 9))
+
+        def run(fn):
+            return lambda: fn(xs[next(turn) % LAYER_NORM_ROTATION], weight, bias, eps)
+
+        kernel = run(ln.layer_norm)
+        w16, b16 = weight.to(torch.bfloat16), bias.to(torch.bfloat16)
+        lib = run(lambda x, w, b, e: F.layer_norm(x, (W,), w16, b16, e))
+        t, d = time_ms(kernel), device_ms(kernel, "layer_norm_kernel")
+        one_launch("layer_norm", d, "layer_norm_kernel")
+        plain = time_ms(run(ln.layer_norm_plain), iters=5, repeats=3)
+        lib_t, lib_d = time_ms(lib), device_ms(lib)
+        n_rows = xs[0].numel() // W
+        b_ms, by = bound(2 * 2 * n_rows * W + 2 * 4 * W)
+        label = f"{what}: {n_rows} rows of {W} bf16, eps {eps:g}"
+        print(f"layer_norm {label}: worst {worst:g}, {share:.2e} of the elements differ, "
+              f"{near_zero:.2e} by more than one bf16 step (near 0); kernel_ms {fmt(t)} device_ms "
+              f"{fmt_dev(d)} plain_ms {fmt(plain)} bound_ms {b_ms:.4f} ({by}) -> {b_ms / d['ms']:.1%} of the bound; library "
+              f"(F.layer_norm in bf16, the port never calls it) {fmt(lib_t)} ms, device "
+              f"{fmt_dev(lib_d)}")
+        rows.append({"shape": label, "max_abs_err": worst, "differ_share": share,
+                     "beyond_one_step_share": near_zero,
+                     "ms": t["median"], "ms_range": [t["min"], t["max"]], "device_ms": d["ms"],
+                     "plain_ms": plain["median"], "bound_ms": b_ms, "bound_by": by,
+                     "bound_share": b_ms / d["ms"], "library_ms": lib_t["median"],
+                     "library_device_ms": lib_d["ms"],
+                     "library_device_launches": lib_d["launches"]})
+        del xs
+    torch.cuda.empty_cache()
+    frames = seeded_batches(128, 1, 128)[0]
+    launches, split = {}, {}
+    for path, want in LAYER_NORM_LAUNCHES.items():
+        pipe = build_pipeline(path)
+        warm_up(pipe, frames)
+        ln.layer_norm.launches = 0
+        serve(pipe, [frames])
+        launches[path] = ln.layer_norm.launches
+        print(f"layer_norm launches in one served batch of path {path}: {launches[path]}")
+        if launches[path] != want:
+            fail(f"path {path}: layer_norm launches {launches[path]}, expected {want}")
+        if want:
+            split[path] = layer_norm_split(pipe, 128, dev)
+            print(f"path {path}, the classifier at 128 faces: " + "; ".join(
+                f"{k}: LayerNorms {v['layer_norm_ms']:.3f} of {v['classifier_device_ms']:.3f} "
+                f"device ms in {v['device_launches']} launches, {v['event_ms']:.3f} event ms"
+                for k, v in split[path].items()))
         del pipe
         torch.cuda.empty_cache()
     return {"rows": rows, "launches": launches, "classifier_split": split}
@@ -3435,6 +3605,7 @@ def main() -> None:
     conv_rows = check_int8_conv(ik, dev, convs, k_major)
     stem_rows, block_rows, proto_rows = check_fused(fs, fm, dev)
     epilogues = check_epilogues(dev)
+    layer_norms = check_layer_norm(dev)
     s2d_context = s2d_prefix_context(dev)
     torch.cuda.empty_cache()
 
@@ -3671,6 +3842,8 @@ def main() -> None:
         *(row(name, "epilogue.cu", "none: XLA fused these passes in the JAX package",
               epilogues["launches"]["B default pooled warp"][name], shapes[0], shapes)
           for name, shapes in epilogues["rows"].items()),
+        row("layer_norm", "layer_norm.cu", "none: XLA fused these passes in the JAX package",
+            layer_norms["launches"][I_PATH], layer_norms["rows"][0], layer_norms["rows"]),
     ]}
     if any(k["launches"] < 1 for k in report["kernels"]):
         fail(f"a kernel was never launched: {[(k['name'], k['launches']) for k in report['kernels']]}")
@@ -3684,7 +3857,8 @@ def main() -> None:
              "warp_geometry": geometry_rows,
              "crop_pool": pool_rows, "card_vs_cpu": card_vs_cpu_err, "paths": paths,
              "device_launches_per_fused_block": fs.LAUNCHES_PER_BLOCK,
-             "s2d_context": s2d_context, "epilogues": epilogues, "predictor": predictor,
+             "s2d_context": s2d_context, "epilogues": epilogues, "layer_norms": layer_norms,
+             "predictor": predictor,
              "whole_frame_warp": whole_rows, "preprocessing_pipeline": pipeline,
              "training": training, "predictor_families": families, "detector_bars": bars,
              "detector_training": detector_training, "loaders": loaders,

@@ -1,8 +1,10 @@
 // Device helpers shared by the port's kernels (csrc/*.cu): 32-bit division
-// by a run-time constant, and the zero-filling asynchronous copy with its
-// commit and wait (sm_80+).
+// by a run-time constant, the zero-filling asynchronous copy with its
+// commit and wait (sm_80+), and 16-byte vectors of 8 bf16 or 4 float32
+// to and from float32 registers.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace dfv {
@@ -32,6 +34,32 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// The 8 bf16 of a 16-byte vector as float32, and back, rounded to nearest even;
+// 8 float32 from two 16-byte loads.
+__device__ __forceinline__ void bf16x8_to_float(const uint4& v, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ uint4 float_to_bf16x8(const float (&f)[8]) {
+  uint4 v;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return v;
+}
+
+__device__ __forceinline__ void load_float8(const float4* p, float (&f)[8]) {
+  const float4 lo = __ldg(p), hi = __ldg(p + 1);
+  f[0] = lo.x; f[1] = lo.y; f[2] = lo.z; f[3] = lo.w;
+  f[4] = hi.x; f[5] = hi.y; f[6] = hi.z; f[7] = hi.w;
 }
 
 }  // namespace dfv

@@ -43,35 +43,13 @@
 
 #include <cstdint>
 
+#include "dfv_common.cuh"
+
 namespace dfv {
 
 constexpr int kEpilogueThreads = 256;
 constexpr int kEpilogueBlocksPerSm = 3;  // ops/bn_epilogue.py::EPILOGUE_BLOCKS_PER_SM
 constexpr int kEpilogueUnroll = 2;
-
-__device__ __forceinline__ void bf16x8_to_float(const uint4& v, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-__device__ __forceinline__ uint4 float_to_bf16x8(const float (&f)[8]) {
-  uint4 v;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return v;
-}
-
-__device__ __forceinline__ void load_float8(const float4* p, float (&f)[8]) {
-  const float4 lo = __ldg(p), hi = __ldg(p + 1);
-  f[0] = lo.x; f[1] = lo.y; f[2] = lo.z; f[3] = lo.w;
-  f[4] = hi.x; f[5] = hi.y; f[6] = hi.z; f[7] = hi.w;
-}
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));

@@ -31,6 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import layer_norm as ln
 from ..parallel.collectives import all_reduce_sum, rand_rows, rows_active
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
@@ -227,10 +228,10 @@ class BatchNorm(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm`` over the last dim: the statistics in float32
-    (float64 for float64 inputs) as flax's ``_compute_stats`` takes them
-    (mean and E[x²] − E[x]², clipped at 0), ``(x − mean) · (rsqrt(var +
-    eps) · scale) + bias`` in that precision, returned in the input dtype."""
+    """flax ``nn.LayerNorm`` over the last dim (``ops/layer_norm.py::
+    layer_norm_plain``: float32 statistics, float64 for float64 inputs,
+    returned in the input dtype). In inference on bf16 CUDA rows it is one
+    hand-written pass (``ops/layer_norm.py``) where ``engages`` holds."""
 
     def __init__(self, features: int, eps: float = 1e-6):
         super().__init__()
@@ -239,11 +240,9 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(-1, keepdim=True)
-        var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return ((xf - mean) * mul + self.bias).to(x.dtype)
+        if ln.engages(x, self):
+            return ln.launch(x, self.weight, self.bias, self.eps)
+        return ln.layer_norm_plain(x, self.weight, self.bias, self.eps)
 
     def load_flax(self, params: Dict[str, Any], stats: Dict[str, Any]) -> None:
         _copy_checked(self.weight, _as_tensor(params["scale"]), "LayerNorm.scale")

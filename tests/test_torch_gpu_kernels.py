@@ -18,6 +18,7 @@ from deepfake_vit_tpu_torch.ops import bn_epilogue as be
 from deepfake_vit_tpu_torch.ops import fused_mbconv as fm
 from deepfake_vit_tpu_torch.ops import fused_stages as fs
 from deepfake_vit_tpu_torch.ops import int8_kernel as ik
+from deepfake_vit_tpu_torch.ops import layer_norm as ln
 from deepfake_vit_tpu_torch.ops import warp_kernel as wk
 from deepfake_vit_tpu_torch.ops.warp import (frac_window_levels, max_window_levels,
                                              window_geometry, window_geometry_frac)
@@ -667,6 +668,149 @@ def test_epilogue_kernels_replay_in_a_captured_graph(dev):
         torch.cuda.synchronize()
         want = bb(fresh)
     assert torch.equal(out, want)
+
+
+# The transformers' LayerNorms a served batch: the shape drawn, eps, the view
+# whose rows are normalized. The ViT's 128 × 197 tokens; the TimeSformer's
+# ln_t (16 clips × 196 patches × 8 frames, copied to patch-major rows), ln1
+# (128 frames × 197), ln2 (16 × 1,569), its CLS rows (1,569 · 768 apart in
+# the tokens) and a single clip's ln_t rows (196 patches × 8 frames, a view
+# of the tokens in two strides); other widths (ViT-S/16, ViT-Ti/16, tiny8)
+# and a row that leaves lanes idle (W = 200).
+LAYER_NORM_VIEWS = {
+    "": lambda x: x,
+    "cls": lambda x: x[:, 0],
+    "one_clip_temporal": lambda x: (x[:, 1:].reshape(1, 8, 196, 768).transpose(1, 2)
+                                    .reshape(196, 8, 768)),
+}
+LAYER_NORM_CASES = [
+    ((128, 197, 768), 1e-12, ""), ((25088, 768), 1e-6, ""), ((25216, 768), 1e-6, ""),
+    ((25104, 768), 1e-6, ""), ((16, 1569, 768), 1e-6, "cls"),
+    ((1, 1569, 768), 1e-6, "one_clip_temporal"), ((7, 197, 384), 1e-12, ""),
+    ((5, 197, 192), 1e-12, ""), ((3, 17, 64), 1e-6, ""), ((9, 200), 1e-6, ""),
+]
+
+
+def _layer_norm_inputs(shape, view, dev, seed):
+    """bf16 rows with a mean away from 0 (a residual stream's), scale and
+    bias away from the identity; the rows ``LAYER_NORM_VIEWS[view]``."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    W = shape[-1]
+    x = (1.5 + 4.0 * torch.randn(shape, generator=g)).to(dev, torch.bfloat16)
+    weight = (1.0 + 0.3 * torch.randn(W, generator=g)).to(dev)
+    bias = (0.5 * torch.randn(W, generator=g)).to(dev)
+    return LAYER_NORM_VIEWS[view](x), weight, bias
+
+
+def _assert_one_bf16_step(got, want):
+    """|k − p| at most one bf16 step of the larger of the two, plus 2⁻¹⁶ of
+    the largest output: the kernel's float32 row sums run in another order
+    than PyTorch's reduction, so a mean or variance may differ in its last
+    bit and move an output across one rounding boundary; near 0 an output
+    is the difference of terms as large as the largest, whose float32
+    rounding outweighs a tiny value's bf16 step. Returns the largest
+    difference and the shares of elements that differ and that differ by
+    more than one bf16 step."""
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    diff = (got - want).abs()
+    step = torch.ldexp(torch.ones_like(diff), e - 8)
+    beyond = diff > step + 2.0 ** -16 * want.abs().max()
+    assert not beyond.any(), (f"{int(beyond.sum())} of {want.numel()} beyond one bf16 step, "
+                              f"worst {float(diff.max())}: kernel, plain "
+                              f"{list(zip(got[beyond][:8].tolist(), want[beyond][:8].tolist()))}")
+    share = float((diff > 0).float().mean())
+    assert share <= 1e-2, f"{share:.2e} of the elements differ"
+    return float(diff.max()), share, float((diff > step).float().mean())
+
+
+@pytest.mark.parametrize("shape,eps,view", LAYER_NORM_CASES,
+                         ids=[f"{'x'.join(map(str, s))}{'-' + v if v else ''}-eps{e:g}"
+                              for s, e, v in LAYER_NORM_CASES])
+def test_layer_norm_kernel_matches_plain(dev, shape, eps, view):
+    """Within one bf16 step of the plain version (PyTorch's own kernels on
+    the card), one launch a call, the output contiguous; strided rows
+    without a copy. (``chip_smoke.py`` counts the device launches: late in a
+    process the profiler here loses the kernel's records.)"""
+    x, weight, bias = _layer_norm_inputs(shape, view, dev, sum(shape))
+    before = ln.layer_norm.launches
+    got = ln.layer_norm(x, weight, bias, eps)
+    torch.cuda.synchronize()
+    assert ln.layer_norm.launches == before + 1
+    assert got.is_contiguous() and got.shape == x.shape and got.dtype == torch.bfloat16
+    worst, share, near_zero = _assert_one_bf16_step(got, ln.layer_norm_plain(x, weight, bias,
+                                                                            eps))
+    print(f"layer_norm {tuple(x.shape)} eps {eps:g}: worst {worst:g}, {share:.2e} differ, "
+          f"{near_zero:.2e} by more than one bf16 step")
+
+
+def _count_layer_norms(model, images, grad=torch.inference_mode):
+    before = ln.layer_norm.launches
+    with grad():
+        out = model(images)
+    torch.cuda.synchronize()
+    return ln.layer_norm.launches - before, out
+
+
+def test_classifiers_hand_every_layer_norm_to_the_kernel(dev, monkeypatch):
+    """In inference the ViT-B/16 launches 25 LayerNorm kernels a forward and
+    the TimeSformer-Base 37 on one clip (the temporal ones on the rows of
+    the tokens' transposed view, the final one on the CLS rows, both where
+    they lie); the B4 launches none. Against the same model in float32
+    the bf16 features with the kernels lie no farther than twice as far as
+    the eager path's (the kernel switched off): the kernel's rare one-step
+    differences grow through the blocks to bf16's own noise, no further."""
+    from deepfake_vit_tpu_torch.models.timesformer import TimeSformerClassifier
+    from deepfake_vit_tpu_torch.models.vit import ViTClassifier
+
+    g = torch.Generator().manual_seed(8)
+    cases = [(ViTClassifier("base16", dtype=torch.bfloat16), 25, 4),
+             (TimeSformerClassifier("base16", dtype=torch.bfloat16), 37, 8)]
+    for model, want, n in cases:
+        model = init_weights(model, 9).to(dev).eval()
+        images = torch.randn((n, 224, 224, 3), generator=g).to(dev)
+        launches, (_, feats) = _count_layer_norms(model, images)
+        assert launches == want, (type(model).__name__, launches)
+        with monkeypatch.context() as mp:
+            mp.setattr(ln, "engages", lambda *a: False)
+            eager, (_, eager_feats) = _count_layer_norms(model, images)
+            model.dtype = torch.float32
+            _, (_, f32) = _count_layer_norms(model, images)
+        assert eager == 0
+        scale = f32.abs().max()
+        rel = [float((f - f32).abs().max() / scale) for f in (feats, eager_feats)]
+        apart = float((feats - eager_feats).abs().max() / scale)
+        print(f"{type(model).__name__}: features {rel[0]:.2e} (kernel) and {rel[1]:.2e} (eager) "
+              f"of their largest from float32's, {apart:.2e} apart")
+        assert rel[0] <= 2 * rel[1]
+        del model
+    launches, _ = _count_layer_norms(_b4_with_bns().to(dev).eval(),
+                                     torch.randn((2, 224, 224, 3), generator=g).to(dev))
+    assert launches == 0
+
+
+def test_vit_train_step_takes_no_layer_norm_kernel(dev):
+    """A bf16 ViT forward recording autograd (the train step) and a float32
+    one in inference launch no LayerNorm kernel."""
+    from deepfake_vit_tpu_torch.models.vit import ViTClassifier
+
+    images = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(10)).to(dev)
+    for dtype, grad in ((torch.bfloat16, torch.enable_grad), (torch.float32, torch.inference_mode)):
+        model = init_weights(ViTClassifier("tiny16", image_size=32, dtype=dtype), 0).to(dev)
+        launches, _ = _count_layer_norms(model.train(grad is torch.enable_grad), images, grad)
+        assert launches == 0
+
+
+def test_layer_norm_rejects_wrong_inputs(dev):
+    x, weight, bias = _layer_norm_inputs((4, 64), "", dev, 0)
+    with pytest.raises(ValueError):
+        ln.layer_norm(x, weight.cpu(), bias, 1e-6)  # weight on the CPU
+    with pytest.raises(ValueError):
+        ln.layer_norm(torch.zeros(4 * 64 + 1, dtype=torch.bfloat16, device=dev)[1:].view(4, 64),
+                      weight, bias, 1e-6)  # 2-byte aligned
+    with pytest.raises(TypeError):
+        ln.layer_norm(x.float(), weight, bias, 1e-6)
 
 
 def test_kernels_reject_wrong_inputs(dev):
