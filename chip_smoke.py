@@ -9,9 +9,10 @@ over 20 warmed calls (``device_ms``, with the device launches a call), the
 median and range of CUDA events around a wrapper call (host enqueue
 included), the plain PyTorch version's event time, the library yardstick's
 device time where one PyTorch call computes the same function
-(``F.grid_sample``, ``torch._int_mm``, ``F.batch_norm``, ``F.layer_norm``:
-calls the port never makes) and the bound: the larger of the bytes the call
-must move at 3.35 TB/s and its operations at the tensor cores' peak.
+(``F.grid_sample``, ``torch._int_mm``, ``F.batch_norm``, ``F.layer_norm``,
+``F.scaled_dot_product_attention``: calls the port never makes) and the
+bound: the larger of the bytes the call must move at 3.35 TB/s and its
+operations at the tensor cores' peak.
 
 Before it is timed, each row's wrapper call is held once to its plain
 version on the same inputs (``max_abs_err``, within the tolerance of
@@ -27,7 +28,10 @@ against the CPU; ``benchmark/`` measures the served cells end to end.
 train step's faces), ``crop_pool`` (3: paths B and F), ``stem`` (4: paths C
 and D), ``blocks`` (5, 6: the fused block and the prototype),
 ``int8_gemm`` (7), ``int8_conv`` (8: the int8 detector's 25 launches),
-``epilogue`` (9-11) and ``layer_norm`` (12). ``--root DIR`` times the
+``epilogue`` (9-11), ``layer_norm`` (12) and ``self_attention`` (13:
+the attention core at the served spatial and temporal calls; its check is
+against float32 attention, which it must lie as near as the plain version
+does). ``--root DIR`` times the
 kernels of the checkout under DIR (an earlier commit unpacked with ``git
 archive`` into an ignored directory) with this file's measurement, in a
 child process that imports that checkout's package, so that two versions
@@ -67,7 +71,7 @@ SERVING, WINDOW, FACE = (640, 640), 128, (192, 192)  # path A's frames, crop win
 POOL_WINDOW, POOL_FACE = 160, (224, 224)  # FusedPipeline's default warp and face size
 BATCH, MULTI_K = 32, 3  # path F: 32 frames, 3 face slots each
 GROUPS = ("crop_frac", "warp", "crop_pool", "stem", "blocks", "int8_gemm", "int8_conv",
-          "epilogue", "layer_norm")
+          "epilogue", "layer_norm", "self_attention")
 
 # GEMM shapes of path A's int8 tail at B = 128 (rows = 128 x H x W): largest
 # M, a mid shape, largest K.
@@ -109,6 +113,14 @@ LAYER_NORM_SHAPES = (("ViT-B/16 ln1, ln2, ln_final", (128, 197, 768), 1e-12, Fal
 # shapes), so that no call finds its rows in the 50 MB L2 the one before
 # left them in.
 LAYER_NORM_ROTATION = 4
+# The attention core's calls a served batch (B, L, heads): the ViT's and the
+# TimeSformer's spatial attention (128 frames x 197 tokens, 12 a batch each)
+# and the TimeSformer's temporal attention (16 clips x 196 patches over 8
+# frames, 12 a batch). Each QKV product is 116 MB, past the L2; two inputs in
+# turns keep the output of one call out of the next one's reads.
+SELF_ATTENTION_SHAPES = (("ViT-B/16 and TimeSformer spatial attention", (128, 197, 12)),
+                         ("TimeSformer temporal attention", (3136, 8, 12)))
+SELF_ATTENTION_ROTATION = 2
 # Whole frames with drawn faces that the predictor's aligner warps (the
 # clips of tests/test_torch_gpu_paths.py and two 1080p frames): frames,
 # height, width, seed. Each row counts the tiles whose source box outgrows
@@ -120,8 +132,11 @@ WHOLE_FRAMES = {"1280x720": (5, 720, 1280, 34), "640x640": (BATCH, 640, 640, 47)
 # points, bit for bit; the fused stem and blocks sum their 1x1 products in
 # another order, two bf16 steps of the value (|k - p| <= 2^-7 max(|p|, 1));
 # the LayerNorm's float32 row sums, one bf16 step of the larger value plus
-# 2^-16 of the largest output.
-TOLERANCES = ("bit for bit", "two bf16 steps", "one bf16 step")
+# 2^-16 of the largest output; the attention core keeps its scores in
+# float32 where the plain version rounds them to bf16: against float32
+# attention on the same inputs its largest and mean differences are at most
+# the plain version's.
+TOLERANCES = ("bit for bit", "two bf16 steps", "one bf16 step", "nearer float32")
 FAILURES = []  # the rows that failed their check, with the reason
 
 
@@ -222,10 +237,21 @@ def beyond(got: torch.Tensor, want: torch.Tensor, tol: str) -> tuple:
     return float(diff.max()), int((~(diff <= limit)).sum())
 
 
-def check_row(name: str, shape: str, run, plain, tol: str) -> float:
+def check_row(name: str, shape: str, run, plain, tol: str, reference=None) -> float:
     """Holds one wrapper call to one call of its plain version within
-    ``tol`` (a failure goes to FAILURES); the largest difference."""
-    err, n_beyond = beyond(run(), plain(), tol)
+    ``tol`` (a failure goes to FAILURES); the largest difference. For
+    "nearer float32", both against ``reference`` (float32 on the same
+    inputs) instead."""
+    got, want = run(), plain()
+    if tol == "nearer float32":
+        ref = reference().float()
+        k, p = (got.float() - ref).abs(), (want.float() - ref).abs()
+        print(f"{name} {shape}: from float32, max {float(k.max()):g} mean {float(k.mean()):g}; "
+              f"the plain version's max {float(p.max()):g} mean {float(p.mean()):g}")
+        if not (k.max() <= p.max() and k.mean() <= p.mean()):
+            FAILURES.append(f"{name} {shape}: farther from float32 than the plain version")
+        return float((got.float() - want.float()).abs().max())
+    err, n_beyond = beyond(got, want, tol)
     torch.cuda.synchronize()
     if n_beyond:
         FAILURES.append(f"{name} {shape}: {n_beyond} elements beyond {tol} of the plain version, "
@@ -245,15 +271,16 @@ def check_launches(name: str, shape: str, d: dict, own: str, launches: int) -> N
 
 def measure(name: str, shape: str, run, own: str, plain, nbytes: float, ops: float = 0.0,
             ops_per_s: float = INT8_OPS_PER_S, library=None, context=None, iters: int = 20,
-            plain_iters: int = 3, tol: str = "bit for bit", launches=1) -> dict:
+            plain_iters: int = 3, tol: str = "bit for bit", launches=1, reference=None) -> dict:
     """One row of the table: ``run`` (the kernel's wrapper call, whose own
     device kernels have ``own`` in their names) held to ``plain`` within
     ``tol`` and timed alone, its plain version ``plain`` and the library yardstick
     ``library`` (a call that computes the same function, or None) beside it,
     its bound; ``context`` (label, call) is a call that computes something
     else, timed for comparison only. ``iters``: the calls a profile spans;
-    ``launches``: the device launches a call holds (None: not held)."""
-    err = check_row(name, shape, run, plain, tol)  # first: rotating inputs start equal
+    ``launches``: the device launches a call holds (None: not held);
+    ``reference``: the float32 call "nearer float32" holds both to."""
+    err = check_row(name, shape, run, plain, tol, reference)  # first: rotating inputs start equal
     t, d = time_ms(run), device_ms(run, own, iters)
     if launches is not None:
         check_launches(name, shape, d, own, launches)
@@ -756,6 +783,41 @@ def layer_norm_rows(dev) -> list:
     return rows
 
 
+def self_attention_rows(dev) -> list:
+    """Row 13: the attention core at SELF_ATTENTION_SHAPES, each call on the
+    next of SELF_ATTENTION_ROTATION QKV products, held to float32 attention,
+    beside ``F.scaled_dot_product_attention`` on the (B, H, L, 64) views of
+    the same product. Bytes: the product read once, O written once."""
+    from deepfake_vit_tpu_torch.ops import self_attention as sa
+
+    rows = []
+    for what, (B, L, H) in SELF_ATTENTION_SHAPES:
+        g = torch.Generator(device="cpu").manual_seed(B + L)
+        W = H * sa.HEAD_DIM
+        xs = [torch.cat([1.5 * torch.randn((B, L, 2 * W), generator=g),
+                         0.5 + torch.randn((B, L, W), generator=g)], -1).to(dev, torch.bfloat16)
+              for _ in range(SELF_ATTENTION_ROTATION)]
+
+        def rotating(fn):  # each call its own turn: the first call of each takes xs[0]
+            turn = itertools.count()
+            return lambda: fn(xs[next(turn) % SELF_ATTENTION_ROTATION])
+
+        def sdpa(x):
+            q, k, v = x.view(B, L, 3, H, sa.HEAD_DIM).permute(2, 0, 3, 1, 4)
+            return F.scaled_dot_product_attention(q, k, v)
+
+        rows.append(measure(
+            "self_attention", f"{what}: B {B}, L {L}, {H} heads of {sa.HEAD_DIM}, bf16",
+            rotating(lambda x: sa.self_attention(x, H)), "attention_kernel",
+            rotating(lambda x: sa.self_attention_plain(x, H)), 2 * 4 * B * L * W,
+            ops=4 * B * H * L * L * sa.HEAD_DIM, ops_per_s=BF16_OPS_PER_S,
+            library=rotating(sdpa), plain_iters=5, tol="nearer float32",
+            reference=lambda: sa.self_attention_plain(xs[0].float(), H)))
+        del xs
+    torch.cuda.empty_cache()
+    return rows
+
+
 def served_launches() -> dict:
     """Each wrapper's launches in one served batch of each path of
     ``tests/test_torch_gpu_paths.py`` (its pipelines and frames; 128 frames,
@@ -823,7 +885,8 @@ def main(argv=None) -> int:
               "crop_pool": lambda: crop_pool_rows(wk, dev), "stem": lambda: stem_rows(fs, dev),
               "blocks": lambda: block_rows(fs, fm, dev), "int8_gemm": lambda: int8_gemm_rows(ik, dev),
               "int8_conv": lambda: int8_conv_rows(ik, dev), "epilogue": lambda: epilogue_rows(dev),
-              "layer_norm": lambda: layer_norm_rows(dev)}
+              "layer_norm": lambda: layer_norm_rows(dev),
+              "self_attention": lambda: self_attention_rows(dev)}
     report = {"card": card, "device": torch.cuda.get_device_name(0), "torch": torch.__version__,
               "cuda": torch.version.cuda, "root": str(package_root), "rows": {}}
     for group in groups:

@@ -32,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import layer_norm as ln
+from ..ops import self_attention as sa
 from ..parallel.collectives import all_reduce_sum, rand_rows, rows_active
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
@@ -268,7 +269,11 @@ class MultiHeadDotProductAttention(nn.Module):
     The query, key and value projections are one (3W, W) GEMM: flax's
     ``query``/``key``/``value`` kernels (W, H, hd) and biases (H, hd) are
     stacked on load and split again on export; ``out``'s kernel is
-    (H, hd, W)."""
+    (H, hd, W). Between the two projections the core is
+    ``ops/self_attention.py::self_attention_plain``; in inference on a bf16
+    CUDA QKV product with hd = 64 and at most 256 tokens it is one
+    hand-written kernel (``ops/self_attention.py``) where ``engages``
+    holds."""
 
     FLAX_KEYS = frozenset({"query", "key", "value", "out"})
 
@@ -283,18 +288,17 @@ class MultiHeadDotProductAttention(nn.Module):
         self.out_bias = nn.Parameter(torch.zeros(width))
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        B, L, W = x.shape
-        H, dt = self.heads, x.dtype
-        hd = W // H
+        L, dt = x.shape[1], x.dtype
         qkv = F.linear(x, self.qkv_weight.to(dt), self.qkv_bias.to(dt))
-        q, k, v = qkv.view(B, L, 3, H, hd).permute(2, 0, 3, 1, 4)  # each (B, H, L, hd)
-        q = q / torch.tensor(math.sqrt(hd), dtype=dt, device=x.device)
-        weights = torch.softmax(q @ k.transpose(-1, -2), dim=-1)  # (B, H, L, L)
-        if self.training and self.dropout_rate > 0.0:
-            keep = 1.0 - self.dropout_rate
-            mask = keep_mask((L, L), keep, x, generator).to(dt)
-            weights = weights * (mask / torch.tensor(keep, dtype=dt, device=x.device))
-        o = (weights @ v).transpose(1, 2).reshape(B, L, W)
+        if sa.engages(qkv, self):
+            o = sa.launch(qkv, self.heads)
+        else:
+            dropout = None
+            if self.training and self.dropout_rate > 0.0:
+                keep = 1.0 - self.dropout_rate
+                mask = keep_mask((L, L), keep, x, generator).to(dt)
+                dropout = mask / torch.tensor(keep, dtype=dt, device=x.device)
+            o = sa.self_attention_plain(qkv, self.heads, dropout)
         return F.linear(o, self.out_weight.to(dt), self.out_bias.to(dt))
 
     def load_flax(self, params: Dict[str, Any], stats: Dict[str, Any]) -> None:

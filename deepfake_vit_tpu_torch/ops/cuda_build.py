@@ -44,6 +44,7 @@ _SIGNATURES = {
     "dfv_fused_mbconv": [*[_P] * 14, *[_I] * 9, _P],
     "dfv_epilogue": [*[_P] * 4, *[_I] * 6, _P],
     "dfv_layer_norm": [*[_P] * 4, *[_I] * 6, ctypes.c_float, _P],
+    "dfv_self_attention": [_P, _P, *[_I] * 8, ctypes.c_float, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -8,6 +8,11 @@ versions and take ``expf`` where those take ``torch.sigmoid``: they agree
 within two bf16 steps of the value, ``|k − p| ≤ 2⁻⁷ · max(|p|, 1)``.
 """
 
+import json
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +24,7 @@ from deepfake_vit_tpu_torch.ops import fused_mbconv as fm
 from deepfake_vit_tpu_torch.ops import fused_stages as fs
 from deepfake_vit_tpu_torch.ops import int8_kernel as ik
 from deepfake_vit_tpu_torch.ops import layer_norm as ln
+from deepfake_vit_tpu_torch.ops import self_attention as sa
 from deepfake_vit_tpu_torch.ops import warp_kernel as wk
 from deepfake_vit_tpu_torch.ops.warp import (frac_window_levels, max_window_levels,
                                              window_geometry, window_geometry_frac)
@@ -102,14 +108,11 @@ def test_crop_frac_kernel_edges_and_buckets(dev, construction):
     g = torch.Generator(device="cpu").manual_seed(5)
     frames = (torch.rand((n, H, W * C), generator=g) * 255).to(torch.bfloat16).to(dev)
     fn = wk.crop_frac if construction == "legacy" else wk.crop_frac_mxu
-    acts = [torch.profiler.ProfilerActivity.CUDA]
-    before = fn.launches
-    with torch.profiler.profile(activities=acts) as prof:
-        got = fn(frames, strip0, level, r, off_y, x0f, window, C)
-        torch.cuda.synchronize()
-    assert fn.launches == before + 1
-    launched = [ev.key for ev in prof.key_averages()
-                if ev.device_type == torch.autograd.DeviceType.CUDA for _ in range(ev.count)]
+    before, calls = fn.launches, []
+    launched = _device_launches(
+        lambda: calls.append(fn(frames, strip0, level, r, off_y, x0f, window, C)))
+    assert fn.launches == before + len(calls)
+    got = calls[-1]
     assert len(launched) == 1 and "crop_frac_band_kernel" in launched[0], launched
     fidx = torch.arange(n, device=dev)
     assert torch.equal(got, _plain_crop(frames, strip0, level, r, off_y, x0f, window, fidx,
@@ -848,6 +851,195 @@ def test_layer_norm_rejects_wrong_inputs(dev):
                       weight, bias, 1e-6)  # 2-byte aligned
     with pytest.raises(TypeError):
         ln.layer_norm(x.float(), weight, bias, 1e-6)
+
+
+# The attention core's calls a served batch: (B, L, heads). The ViT's and
+# the TimeSformer's spatial attention (128 frames × 197 tokens, the long
+# plan) and the TimeSformer's temporal attention (16 clips × 196 patches, 8
+# frames each, the short plan, two sequences a tile); ragged lengths of both
+# plans, 13 sequences of 5 heads (65 pairs: the short plan's last tile holds
+# one), every long-plan instantiation and the longest sequence.
+SELF_ATTENTION_CASES = [(128, 197, 12), (3136, 8, 12),
+                        *((13, L, 5) for L in (1, 7, 9, 16, 17, 63, 65, 200, 256))]
+
+
+def _qkv(B, L, heads, dev, seed):
+    """A bf16 QKV product: q and k N(0, 1.5²), so that the scores spread as
+    a trained network's do (σ ≈ 2.25), v N(0.5, 1)."""
+    g = torch.Generator().manual_seed(seed)
+    W = heads * sa.HEAD_DIM
+    qk = 1.5 * torch.randn((B, L, 2 * W), generator=g)
+    v = 0.5 + torch.randn((B, L, W), generator=g)
+    return torch.cat([qk, v], -1).to(dev, torch.bfloat16)
+
+
+def _attention_errors(qkv, heads, got, monkeypatch):
+    """|kernel − float32| and |plain − float32| against float32 attention
+    (no TF32) on the same bf16 inputs, and the bound of one bf16 step of the
+    output plus 2⁻⁸ of the largest |v|: the weights' bf16 rounding (2⁻⁹ of
+    each) moves an output by at most 2⁻⁹ · max |v − o|, which near o = 0 is
+    more than the output's own step."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    ref = sa.self_attention_plain(qkv.float(), heads)
+    plain = sa.self_attention_plain(qkv, heads).float()
+    got = got.float()
+    _, e = torch.frexp(torch.maximum(got.abs(), ref.abs()))
+    vmax = qkv[..., 2 * heads * sa.HEAD_DIM:].float().abs().max()
+    limit = torch.ldexp(torch.ones_like(ref), e - 8) + 2.0 ** -8 * vmax
+    return (got - ref).abs(), (plain - ref).abs(), limit
+
+
+@pytest.mark.parametrize("B,L,heads", SELF_ATTENTION_CASES,
+                         ids=[f"{B}x{L}x{h}" for B, L, h in SELF_ATTENTION_CASES])
+def test_self_attention_kernel_matches_float32(dev, monkeypatch, B, L, heads):
+    """Against float32 attention on the same bf16 inputs the kernel lies at
+    least as close as the eager bf16 path (``self_attention_plain``: its
+    scores and weights rounded to bf16) in the mean and the largest
+    difference, every output within one bf16 step (see
+    ``_attention_errors``); one launch a call, the output contiguous."""
+    qkv = _qkv(B, L, heads, dev, B * 1000 + L)
+    before = sa.self_attention.launches
+    got = sa.self_attention(qkv, heads)
+    torch.cuda.synchronize()
+    assert sa.self_attention.launches == before + 1
+    assert got.shape == (B, L, heads * sa.HEAD_DIM) and got.is_contiguous()
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    err, plain_err, limit = _attention_errors(qkv, heads, got, monkeypatch)
+    print(f"self_attention {(B, L, heads)}: kernel max {float(err.max()):.3g} mean "
+          f"{float(err.mean()):.3g}; eager bf16 max {float(plain_err.max()):.3g} mean "
+          f"{float(plain_err.mean()):.3g}")
+    beyond = err > limit
+    assert not beyond.any(), f"{int(beyond.sum())} outputs beyond one bf16 step of float32's"
+    assert float(err.mean()) <= float(plain_err.mean())
+    assert float(err.max()) <= float(plain_err.max())
+
+
+# The child of test_self_attention_is_one_device_launch: the device kernels
+# one warmed call launches, from the profiler, as one JSON line.
+ONE_LAUNCH_CHILD = """
+import json, sys
+import torch
+from deepfake_vit_tpu_torch.ops import self_attention as sa
+
+B, L, heads = map(int, sys.argv[1:])
+qkv = torch.randn((B, L, 3 * heads * sa.HEAD_DIM), device="cuda").to(torch.bfloat16)
+sa.self_attention(qkv, heads)
+torch.cuda.synchronize()
+with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    sa.self_attention(qkv, heads)
+    torch.cuda.synchronize()
+print(json.dumps([ev.key for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA for _ in range(ev.count)]))
+"""
+
+
+@pytest.mark.parametrize("B,L,heads", SELF_ATTENTION_CASES[:2],
+                         ids=[f"{B}x{L}x{h}" for B, L, h in SELF_ATTENTION_CASES[:2]])
+def test_self_attention_is_one_device_launch(dev, B, L, heads):
+    """At the served shapes one call is one device launch of the kernel: no
+    copy, no scalar tensor, no sync. Profiled in a process of its own: late
+    in a process the profiler loses the kernel's records."""
+    proc = subprocess.run([sys.executable, "-c", ONE_LAUNCH_CHILD, str(B), str(L), str(heads)],
+                          cwd=Path(__file__).resolve().parents[1], capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    launched = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(launched) == 1 and "attention_kernel" in launched[0], launched
+
+
+def test_self_attention_reads_strided_views_in_place(dev):
+    """Rows in two strides, a multiple of 8 apart, are read where they lie:
+    ``x[:, 1]`` of a (B, 2, L, 3W) tensor and a slice of wider rows give the
+    contiguous copy's output bit for bit; rows whose stride is no multiple
+    of 8, a last dim that is not contiguous, another head width, more than
+    ``MAX_SEQ`` tokens, float32 or a 2-byte offset are refused."""
+    B, L, heads = 6, 197, 3
+    W3 = 3 * heads * sa.HEAD_DIM
+    for L_case in (L, 8):
+        big = _qkv(B * 2, L_case, heads, dev, 11).view(B, 2, L_case, W3)
+        want = sa.self_attention(big[:, 1].contiguous(), heads)
+        assert torch.equal(sa.self_attention(big[:, 1], heads), want)
+        wide = torch.zeros((B, L_case, W3 + 8), dtype=torch.bfloat16, device=dev)
+        wide[..., :W3] = big[:, 1]
+        assert torch.equal(sa.self_attention(wide[..., :W3], heads), want)
+    qkv = _qkv(2, 9, heads, dev, 12)
+    with pytest.raises(ValueError):
+        sa.self_attention(torch.zeros((2, 9, W3 + 4), dtype=torch.bfloat16,
+                                      device=dev)[..., :W3], heads)  # rows 4 values apart
+    with pytest.raises(ValueError):
+        sa.self_attention(qkv.transpose(1, 2).contiguous().transpose(1, 2), heads)
+    with pytest.raises(ValueError):
+        sa.self_attention(qkv, 2 * heads)  # hd = 32
+    with pytest.raises(ValueError):
+        sa.self_attention(_qkv(1, sa.MAX_SEQ + 1, heads, dev, 13), heads)
+    with pytest.raises(TypeError):
+        sa.self_attention(qkv.float(), heads)
+    with pytest.raises(ValueError):
+        sa.self_attention(torch.zeros(2 * 9 * W3 + 1, dtype=torch.bfloat16,
+                                      device=dev)[1:].view(2, 9, W3), heads)
+
+
+def _count_attention(model, images, grad=torch.inference_mode):
+    before = sa.self_attention.launches
+    with grad():
+        out = model(images)
+    torch.cuda.synchronize()
+    return sa.self_attention.launches - before, out
+
+
+def test_classifiers_hand_every_attention_core_to_the_kernel(dev, monkeypatch):
+    """In inference the ViT-B/16 launches 12 attention kernels a forward and
+    the TimeSformer-Base 24 on one clip (12 spatial over 197 tokens, 12
+    temporal over 8 frames); the B4 launches none. Against the same model in
+    float32 the bf16 features with the kernel lie no farther than twice as
+    far as the eager path's (the kernel switched off): a call of the kernel
+    lies nearer float32 than the eager core (see
+    ``test_self_attention_kernel_matches_float32``), but through 12 blocks
+    the largest feature error is set by the roundings both paths share
+    (GEMMs, GELU, residual adds), as in the LayerNorm's whole-model test."""
+    from deepfake_vit_tpu_torch.models.timesformer import TimeSformerClassifier
+    from deepfake_vit_tpu_torch.models.vit import ViTClassifier
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = torch.Generator().manual_seed(18)
+    cases = [(ViTClassifier("base16", dtype=torch.bfloat16), 12, 4),
+             (TimeSformerClassifier("base16", dtype=torch.bfloat16), 24, 8)]
+    for model, want, n in cases:
+        model = init_weights(model, 19).to(dev).eval()
+        images = torch.randn((n, 224, 224, 3), generator=g).to(dev)
+        launches, (_, feats) = _count_attention(model, images)
+        assert launches == want, (type(model).__name__, launches)
+        with monkeypatch.context() as mp:
+            mp.setattr(sa, "engages", lambda *a: False)
+            eager, (_, eager_feats) = _count_attention(model, images)
+            model.dtype = torch.float32
+            _, (_, f32) = _count_attention(model, images)
+        assert eager == 0
+        scale = f32.abs().max()
+        rel = [float((f - f32).abs().max() / scale) for f in (feats, eager_feats)]
+        print(f"{type(model).__name__}: features {rel[0]:.2e} (kernel) and {rel[1]:.2e} (eager) "
+              f"of their largest from float32's")
+        assert rel[0] <= 2 * rel[1]
+        del model
+    launches, _ = _count_attention(_b4_with_bns().to(dev).eval(),
+                                   torch.randn((2, 224, 224, 3), generator=g).to(dev))
+    assert launches == 0
+
+
+def test_vit_train_step_takes_no_attention_kernel(dev):
+    """A bf16 ViT forward recording autograd (the train step), one in train
+    mode with dropout and a float32 one in inference launch no attention
+    kernel."""
+    from deepfake_vit_tpu_torch.models.vit import ViTClassifier
+
+    images = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(20)).to(dev)
+    for dtype, grad, dropout in ((torch.bfloat16, torch.enable_grad, 0.0),
+                                 (torch.bfloat16, torch.no_grad, 0.1),
+                                 (torch.float32, torch.inference_mode, 0.0)):
+        model = ViTClassifier("tiny16", image_size=32, dropout=dropout, dtype=dtype)
+        model = init_weights(model, 0).to(dev).train(grad is not torch.inference_mode)
+        launches, _ = _count_attention(model, images, grad)
+        assert launches == 0
 
 
 def test_kernels_reject_wrong_inputs(dev):

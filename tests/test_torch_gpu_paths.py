@@ -50,6 +50,7 @@ from deepfake_vit_tpu_torch.ops import fused_mbconv as fm
 from deepfake_vit_tpu_torch.ops import fused_stages as fs
 from deepfake_vit_tpu_torch.ops import int8_kernel as ik
 from deepfake_vit_tpu_torch.ops import layer_norm as ln
+from deepfake_vit_tpu_torch.ops import self_attention as sa
 from deepfake_vit_tpu_torch.ops import warp_kernel as wk
 
 pytestmark = pytest.mark.gpu
@@ -80,7 +81,7 @@ def kernels():
     return (wk.crop_frac, wk.crop_frac_mxu, wk.crop_pool, wk.warp_affine_legacy,
             wk.warp_affine_uw, wk.warp_affine_uw16, wk.warp_affine_int8, ik.int8_gemm,
             ik.int8_conv, fs.run_stem, fs.run_block, fm.fused_mbconv, be.bn_act, be.bn_add,
-            be.se_gate, ln.layer_norm)
+            be.se_gate, ln.layer_norm, sa.self_attention)
 
 
 @contextlib.contextmanager
@@ -170,7 +171,10 @@ _NO_EPILOGUES = {"bn_act": 0, "bn_add": 0, "se_gate": 0}
 # 224²; the B4's epilogues (stem, 30 expands, 32 depthwise and the head; 32
 # bn2, 25 with the residual; 32 gates) and none in the transformers, whose
 # LayerNorms are 2 a block and the final one (the TimeSformer's ln_t
-# besides). Every other wrapper of the first twelve launches 0 times.
+# besides) and whose attention cores are 1 a block (the TimeSformer's
+# temporal one besides). Every wrapper of _ZERO_UNLESS_LISTED that a path
+# does not list launches 0 times: the first twelve and a thirteenth, the
+# attention core (0 on every B4 path).
 PATHS = {
     "A int8 headline": {**_INT8, "crop_frac": 1, "warp_affine_legacy": 1},
     "B default pooled warp": {"crop_pool": 1, "warp_affine_legacy": 1, **_B4_EPILOGUES,
@@ -184,11 +188,13 @@ PATHS = {
     "G s2d + int8 headline": {**_INT8, "crop_frac": 1, "warp_affine_legacy": 1},
     "H mtcnn detector": {"crop_pool": 1, "warp_affine_legacy": 1},
     "I ViT-B/16, default pooled warp": {"crop_pool": 1, "warp_affine_legacy": 1,
-                                        **_NO_EPILOGUES, "layer_norm": 25},
+                                        **_NO_EPILOGUES, "layer_norm": 25,
+                                        "self_attention": 12},
     "J TimeSformer-Base, default pooled warp": {"crop_pool": 1, "warp_affine_legacy": 1,
-                                                **_NO_EPILOGUES, "layer_norm": 37},
+                                                **_NO_EPILOGUES, "layer_norm": 37,
+                                                "self_attention": 24},
 }
-_FIRST_TWELVE = [k.__name__ for k in kernels()[:12]]
+_ZERO_UNLESS_LISTED = [k.__name__ for k in kernels()[:12]] + [sa.self_attention.__name__]
 # The batches each path is served at: 32 and the benchmark cells' 128; the
 # fused backbone's path D and the multi-face path F (3 face slots a frame) at
 # 32.
@@ -325,7 +331,7 @@ def test_served_batch_launches_the_paths_kernels(dev, path, n):
     pipe = build_pipeline(path)
     pipe.forward(frames)
     torch.cuda.synchronize()
-    want = {**dict.fromkeys(_FIRST_TWELVE, 0), **PATHS[path]}
+    want = {**dict.fromkeys(_ZERO_UNLESS_LISTED, 0), **PATHS[path]}
     with counted(want) as launches:
         out = pipe.forward(frames)
     assert launches == want
@@ -367,7 +373,8 @@ def test_make_sharded_over_two_replicas_matches_forward(dev):
     sharded = pipe.make_sharded(make_mesh(devices=[dev, dev]))
     ref = pipe.forward(frames)
     sharded(frames)
-    want = {k: 2 * v for k, v in {**dict.fromkeys(_FIRST_TWELVE, 0), **PATHS["A int8 headline"]}.items()}
+    want = {k: 2 * v for k, v in {**dict.fromkeys(_ZERO_UNLESS_LISTED, 0),
+                                  **PATHS["A int8 headline"]}.items()}
     with counted(want) as launches:
         out = sharded(frames)
     assert launches == want
@@ -392,7 +399,7 @@ def test_uw_windowed_warp_launches_one_crop_and_one_warp(dev):
     A_inv = torch.as_tensor(np.concatenate([R, t[..., None]], -1), dtype=torch.float32,
                             device=dev)
     args = dict(window=160, inverse=True, frame_indices=torch.arange(n, device=dev) // MULTI_K)
-    want = {**dict.fromkeys(_FIRST_TWELVE, 0), "crop_pool": 1, "warp_affine_uw": 1}
+    want = {**dict.fromkeys(_ZERO_UNLESS_LISTED, 0), "crop_pool": 1, "warp_affine_uw": 1}
     with counted(want) as launches:
         uw = warp_affine_windowed(frames, A_inv, (224, 224), tap_construction="uw", **args)
     assert launches == want
@@ -431,8 +438,9 @@ def test_predictor_card_matches_cpu(dev, family):
     ViT-B/16) with each detector family: in float32 card vs CPU (num_faces
     equal and not 0, fake_prob within PREDICTOR_PROB_TOL, labels equal away
     from the threshold; the ViT on the 1280×720 clip); then in bf16 on the
-    card one warp launch a clip and finite probabilities, and with SCRFD a
-    seeded full-width B4 predictor the same."""
+    card one warp launch a clip (and the ViT's 12 attention cores: one
+    batch of faces) and finite probabilities, and with SCRFD a seeded
+    full-width B4 predictor the same."""
     from deepfake_vit_tpu_torch.inference import DeepfakePredictor
     from deepfake_vit_tpu_torch.models.vit import ViTClassifier
     from deepfake_vit_tpu_torch.preprocessing.detector import default_weights_path
@@ -465,7 +473,8 @@ def test_predictor_card_matches_cpu(dev, family):
     for pred, name in served:
         frames = clip(name)
         pred.predict_frames(frames)  # warm-up
-        want = {**dict.fromkeys(_FIRST_TWELVE, 0), "warp_affine_legacy": 1}
+        want = {**dict.fromkeys(_ZERO_UNLESS_LISTED, 0), "warp_affine_legacy": 1,
+                "self_attention": 12 if vit else 0}
         with counted(want) as launches:
             out = pred.predict_frames(frames)
         assert launches == want, name
@@ -493,7 +502,7 @@ def test_preprocessing_pipeline_card_matches_cpu(dev):
     with tf32_off():
         card = PreprocessingPipeline(PREPROCESSING_CONFIG, device=dev)
         card.process_batch(frames[:2])  # warm-up
-        want_launches = {**dict.fromkeys(_FIRST_TWELVE, 0), "warp_affine_legacy": 1}
+        want_launches = {**dict.fromkeys(_ZERO_UNLESS_LISTED, 0), "warp_affine_legacy": 1}
         with counted(want_launches) as launches:
             got = card.process_batch(frames)
         want = PreprocessingPipeline(PREPROCESSING_CONFIG, device="cpu").process_batch(frames)
@@ -854,7 +863,7 @@ def test_trainer_on_the_card(dev, model):
     trainer = Trainer(net, opt, crit, [], [], create_scheduler(cfg["training"]["scheduler"], lr),
                       augment_fn=make_augment_fn(LEARN_AUG), seed=5)
     batch = drawn_train_faces(32, 23)
-    want = {**dict.fromkeys(_FIRST_TWELVE, 0), "warp_affine_legacy": 30}
+    want = {**dict.fromkeys(_ZERO_UNLESS_LISTED, 0), "warp_affine_legacy": 30}
     with counted(want) as launches:
         losses = [float(trainer.train_step(trainer.state, batch, trainer.seed)["loss"])
                   for _ in range(30)]
