@@ -103,15 +103,22 @@ EPILOGUE_SHAPES = (("bn_act", 144, 112, "block 2's expand"), ("bn_act", 1792, 7,
 # what, the shape whose rows are normalized, eps, and whether the rows are
 # x[:, 0] (the TimeSformer's CLS rows, 1,569 · 768 apart in its tokens).
 # ViT-B/16: 128 × 197 tokens; TimeSformer-Base: ln_t on 16 clips × 196
-# patches × 8 frames, ln1 on 128 frames × 197, ln2 on 16 × 1,569.
+# patches × 8 frames, ln1 on 128 frames × 197, ln2 on 16 × 1,569; Swin-B
+# (the 46 of its 53 LayerNorms that take the kernel): the patch embedding's
+# and stage 1's on 128 × 3,136 tokens of 128, stage 2's on 128 × 784 of 256,
+# the merge into stage 2 on 128 × 784 of 512, stage 3's on 128 × 196 of 512.
 LAYER_NORM_SHAPES = (("ViT-B/16 ln1, ln2, ln_final", (128, 197, 768), 1e-12, False),
                      ("TimeSformer ln_t", (25088, 768), 1e-6, False),
                      ("TimeSformer ln1", (25216, 768), 1e-6, False),
                      ("TimeSformer ln2", (25104, 768), 1e-6, False),
-                     ("TimeSformer ln_final, CLS rows", (16, 1569, 768), 1e-6, True))
-# Inputs the timed LayerNorm calls take in turn (each 38.7 MB at the served
-# shapes), so that no call finds its rows in the 50 MB L2 the one before
-# left them in.
+                     ("TimeSformer ln_final, CLS rows", (16, 1569, 768), 1e-6, True),
+                     ("Swin-B embedding norm, stage 1 ln1, ln2", (401408, 128), 1e-5, False),
+                     ("Swin-B stage 2 ln1, ln2", (100352, 256), 1e-5, False),
+                     ("Swin-B merge into stage 2", (100352, 512), 1e-5, False),
+                     ("Swin-B stage 3 ln1, ln2", (25088, 512), 1e-5, False))
+# Inputs the timed LayerNorm calls take in turn (25.7 to 102.8 MB each at the
+# served shapes), so that no call finds its rows in the 50 MB L2 the one
+# before left them in.
 LAYER_NORM_ROTATION = 4
 # The attention core's calls a served batch (B, L, heads): the ViT's and the
 # TimeSformer's spatial attention (128 frames x 197 tokens, 12 a batch each)

@@ -33,6 +33,9 @@ JAX class fails there on a missing ``batch_stats`` collection);
 ``make_sharded(mesh)``, the frame batch split over the mesh's devices in
 one process, one replica of the pipeline a device.
 
+The Swin classifier (``model.type: swin``, ``models/swin.py``) is served
+per frame exactly as the ViT is, with the warp options only.
+
 Beyond the JAX class: the TimeSformer clip classifier (``model.type:
 timesformer``, ``models/timesformer.py``), which gives one verdict for
 each T consecutive frames of a batch (a face track, T the model's
@@ -73,6 +76,10 @@ from .preprocessing.aligner import DEFAULT_REFERENCE_LANDMARKS, _LANDMARK_ORDER
 from .preprocessing.detector import build_detection_net, default_weights_path
 from .utils.msgpack import msgpack_restore
 from .utils.profiling import annotate
+
+
+# The classifier families by their configuration's ``model.type``, as messages name them.
+FAMILIES = {"vit": "ViT", "timesformer": "TimeSformer", "swin": "Swin"}
 
 
 class FusedPipeline:
@@ -143,18 +150,19 @@ class FusedPipeline:
                              f"expected one of {sorted(WARP_KERNELS)}")
         if keep_top_k < 1:
             raise ValueError(f"keep_top_k must be at least 1, got {keep_top_k}")
-        kind = model_config.get("model", {}).get("type")
-        if kind in ("vit", "timesformer"):
+        kind = model_config.get("model", {}).get("type", "efficientnet")
+        if kind != "efficientnet":
             blocks = [name for name, on in (("use_fused_backbone", use_fused_backbone),
                                             ("use_int8_tail", use_int8_tail),
                                             ("use_s2d_early", use_s2d_early)) if on]
             if blocks:
-                family = "a ViT" if kind == "vit" else "a TimeSformer"
+                family = FAMILIES.get(kind, kind)
                 raise ValueError(f"{', '.join(blocks)} act on EfficientNet blocks; "
-                                 f"{family} classifier takes none of them")
+                                 f"a {family} classifier takes none of them")
         if kind == "timesformer" and keep_top_k > 1:
             raise ValueError(f"keep_top_k={keep_top_k}: a TimeSformer classifies the clip of one "
                              "face track, and K faces a frame would need a tracker to make one")
+        self._kind = kind
         self.device = resolve_device(device)
         self.dtype = dtype
         self.input_size = tuple(detection_input_size)
@@ -233,14 +241,15 @@ class FusedPipeline:
         ``detector_weights="default"`` loads the committed weights of the
         pipeline's detector family (None keeps the seeded init);
         ``classifier_checkpoint`` is a framework checkpoint (msgpack with
-        ``params`` and, but for a ViT, ``batch_stats``); a TimeSformer has
-        none (load its weights with ``load_state_dict`` or
-        ``models.timesformer.load_hf_timesformer`` afterwards).
+        ``params`` and, but for a ViT, ``batch_stats``); a TimeSformer or a
+        Swin has none (load its weights with ``load_state_dict``,
+        ``models.timesformer.load_hf_timesformer`` or
+        ``models.swin.load_hf_swin`` afterwards).
         """
-        if classifier_checkpoint and self.clip_frames:
-            raise ValueError("no flax checkpoint exists for a TimeSformer classifier (the JAX "
-                             "package has no such family); load its state dict after "
-                             "load_variables")
+        if classifier_checkpoint and self._kind in ("timesformer", "swin"):
+            raise ValueError(f"no flax checkpoint exists for a {FAMILIES[self._kind]} "
+                             "classifier (the JAX package has no such family); load its "
+                             "state dict after load_variables")
         self.init_variables(seed)
         if detector_weights == "default":
             detector_weights = default_weights_path(self.detector_arch)

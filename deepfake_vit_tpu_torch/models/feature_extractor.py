@@ -112,7 +112,10 @@ def create_model_from_config(model_cfg: Dict[str, Any],
     classifier ``TimeSformerClassifier`` from ``feature_extractor.{variant,
     image_size, num_frames, dropout_rate}`` (defaults base16, 224, 8, 0.0)
     and ``classifier.num_classes``: one verdict a clip of ``num_frames``
-    consecutive faces. All return ``(logits, features)``.
+    consecutive faces. ``type: swin`` builds ``SwinClassifier`` from
+    ``feature_extractor.{variant, image_size, dropout_rate}`` (defaults
+    base4w7, 224, 0.0) and ``classifier.num_classes``. All return
+    ``(logits, features)``.
     Serving objects put the model in eval mode; a trainer calls
     ``train()``."""
     kind = model_cfg.get("type", "efficientnet")
@@ -133,9 +136,16 @@ def create_model_from_config(model_cfg: Dict[str, Any],
                                      image_size=int(fe.get("image_size", 224)),
                                      num_classes=clf.get("num_classes", 2),
                                      dropout=float(fe.get("dropout_rate", 0.0)), dtype=dtype)
+    if kind == "swin":
+        from .swin import SwinClassifier
+
+        return SwinClassifier(variant=fe.get("variant", "base4w7"),
+                              num_classes=clf.get("num_classes", 2),
+                              image_size=int(fe.get("image_size", 224)),
+                              dropout=float(fe.get("dropout_rate", 0.0)), dtype=dtype)
     if kind != "efficientnet":
-        raise ValueError(f"unknown model type {kind!r}; expected 'efficientnet', 'vit' or "
-                         "'timesformer'")
+        raise ValueError(f"unknown model type {kind!r}; expected 'efficientnet', 'vit', "
+                         "'timesformer' or 'swin'")
     attn = fe.get("attention_config", {}) or {}
     return DeepfakeDetectionModel(
         num_classes=clf.get("num_classes", 2),

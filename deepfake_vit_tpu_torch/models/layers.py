@@ -287,10 +287,14 @@ class MultiHeadDotProductAttention(nn.Module):
         self.out_weight = nn.Parameter(torch.empty(width, width))
         self.out_bias = nn.Parameter(torch.zeros(width))
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``bias``: added to the scores as ``self_attention_plain`` takes
+        it (cast to the activation dtype here); a biased call stays on the
+        plain core."""
         L, dt = x.shape[1], x.dtype
         qkv = F.linear(x, self.qkv_weight.to(dt), self.qkv_bias.to(dt))
-        if sa.engages(qkv, self):
+        if sa.engages(qkv, self, bias):
             o = sa.launch(qkv, self.heads)
         else:
             dropout = None
@@ -298,7 +302,8 @@ class MultiHeadDotProductAttention(nn.Module):
                 keep = 1.0 - self.dropout_rate
                 mask = keep_mask((L, L), keep, x, generator).to(dt)
                 dropout = mask / torch.tensor(keep, dtype=dt, device=x.device)
-            o = sa.self_attention_plain(qkv, self.heads, dropout)
+            o = sa.self_attention_plain(qkv, self.heads, dropout,
+                                        None if bias is None else bias.to(dt))
         return F.linear(o, self.out_weight.to(dt), self.out_bias.to(dt))
 
     def load_flax(self, params: Dict[str, Any], stats: Dict[str, Any]) -> None:

@@ -20,7 +20,8 @@ plain version. ``launches`` on it counts kernel launches and nothing else.
 
 ``models/layers.py::MultiHeadDotProductAttention`` launches the kernel where
 :func:`engages` holds and runs the plain version anywhere else (the train
-step, dropout, float32 and float64 models, other head widths, the CPU).
+step, dropout, float32 and float64 models, other head widths, an additive
+bias such as Swin's relative position bias and shift masks, the CPU).
 """
 
 from __future__ import annotations
@@ -68,18 +69,29 @@ def self_attention_plan(batch: int, heads: int, seq: int) -> AttentionPlan:
 
 
 def self_attention_plain(qkv: torch.Tensor, heads: int,
-                         dropout: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         dropout: Optional[torch.Tensor] = None,
+                         bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """flax's attention core, as flax 0.12's ``dot_product_attention``
     computes it, on the QKV product (B, L, 3W): the query divided by √hd
-    before QKᵀ, the softmax's result in the activation dtype, ``dropout``
-    (an (L, L) mask already divided by the keep rate, broadcast over batch
-    and heads) on the weights, the weights times V; returns (B, L, W)."""
+    before QKᵀ, ``bias`` added to the scores, the softmax's result in the
+    activation dtype, ``dropout`` (an (L, L) mask already divided by the
+    keep rate, broadcast over batch and heads) on the weights, the weights
+    times V; returns (B, L, W).
+
+    ``bias`` (G, 1 or heads, L, L), in the activation dtype, is broadcast
+    over the heads and over the batch taken as B / G groups of G
+    consecutive sequences: sequence b adds ``bias[b % G]`` (the windows of
+    an image, each with its own mask, and the images of a batch)."""
     B, L, W3 = qkv.shape
     W, dt = W3 // 3, qkv.dtype
     hd = W // heads
     q, k, v = qkv.view(B, L, 3, heads, hd).permute(2, 0, 3, 1, 4)  # each (B, H, L, hd)
     q = q / torch.tensor(math.sqrt(hd), dtype=dt, device=qkv.device)
-    weights = torch.softmax(q @ k.transpose(-1, -2), dim=-1)  # (B, H, L, L)
+    scores = q @ k.transpose(-1, -2)  # (B, H, L, L)
+    if bias is not None:
+        G = bias.shape[0]
+        scores = (scores.view(B // G, G, heads, L, L) + bias).view(B, heads, L, L)
+    weights = torch.softmax(scores, dim=-1)
     if dropout is not None:
         weights = weights * dropout
     return (weights @ v).transpose(1, 2).reshape(B, L, W)
@@ -147,13 +159,16 @@ def _on_kernel_device(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
-def engages(qkv: torch.Tensor, module) -> bool:
+def engages(qkv: torch.Tensor, module, bias: Optional[torch.Tensor] = None) -> bool:
     """Whether the kernel takes the attention core of ``module`` (a
     ``MultiHeadDotProductAttention``) on its QKV product: qkv on CUDA, bf16,
     16-byte aligned, in the kernel's layout (``HEAD_DIM`` values a head, 1 ≤
-    L ≤ ``MAX_SEQ``); no autograd recorded; no dropout (not training, or
-    rate 0). ``forward`` then calls :func:`launch` straight away: these are
-    the wrapper's checks."""
+    L ≤ ``MAX_SEQ``); no additive ``bias`` (the kernel adds none); no
+    autograd recorded; no dropout (not training, or rate 0). ``forward``
+    then calls :func:`launch` straight away: these are the wrapper's
+    checks."""
+    if bias is not None:
+        return False
     if torch.is_grad_enabled() and not torch.is_inference_mode_enabled():
         return False
     if module.training and module.dropout_rate > 0.0:

@@ -714,8 +714,10 @@ def test_epilogue_kernels_replay_in_a_captured_graph(dev):
 # ln_t (16 clips × 196 patches × 8 frames, copied to patch-major rows), ln1
 # (128 frames × 197), ln2 (16 × 1,569), its CLS rows (1,569 · 768 apart in
 # the tokens) and a single clip's ln_t rows (196 patches × 8 frames, a view
-# of the tokens in two strides); other widths (ViT-S/16, ViT-Ti/16, tiny8)
-# and a row that leaves lanes idle (W = 200).
+# of the tokens in two strides); Swin-B's served rows (stage 1's 128 × 3,136
+# tokens of 128 and the embedding's, stage 2's 128 × 784 of 256, the first
+# merge's 784 of 512, stage 3's 128 × 196 of 512); other widths (ViT-S/16,
+# ViT-Ti/16, tiny8) and a row that leaves lanes idle (W = 200).
 LAYER_NORM_VIEWS = {
     "": lambda x: x,
     "cls": lambda x: x[:, 0],
@@ -727,6 +729,8 @@ LAYER_NORM_CASES = [
     ((25104, 768), 1e-6, ""), ((16, 1569, 768), 1e-6, "cls"),
     ((1, 1569, 768), 1e-6, "one_clip_temporal"), ((7, 197, 384), 1e-12, ""),
     ((5, 197, 192), 1e-12, ""), ((3, 17, 64), 1e-6, ""), ((9, 200), 1e-6, ""),
+    ((401408, 128), 1e-5, ""), ((100352, 256), 1e-5, ""), ((100352, 512), 1e-5, ""),
+    ((25088, 512), 1e-5, ""),
 ]
 
 

@@ -162,6 +162,8 @@ VIT_MODEL = {"type": "vit", "feature_extractor": {"variant": "base16", "image_si
 TSF_MODEL = {"type": "timesformer",
              "feature_extractor": {"variant": "base16", "image_size": 224, "num_frames": 8},
              "classifier": {"num_classes": 2}}
+SWIN_MODEL = {"type": "swin", "feature_extractor": {"variant": "base4w7", "image_size": 224},
+              "classifier": {"num_classes": 2}}
 _INT8 = {"int8_gemm": 44, "int8_conv": 25}
 _B4_EPILOGUES = {"bn_act": 64, "bn_add": 32, "se_gate": 32}
 _NO_EPILOGUES = {"bn_act": 0, "bn_add": 0, "se_gate": 0}
@@ -172,7 +174,10 @@ _NO_EPILOGUES = {"bn_act": 0, "bn_add": 0, "se_gate": 0}
 # bn2, 25 with the residual; 32 gates) and none in the transformers, whose
 # LayerNorms are 2 a block and the final one (the TimeSformer's ln_t
 # besides) and whose attention cores are 1 a block (the TimeSformer's
-# temporal one besides). Every wrapper of _ZERO_UNLESS_LISTED that a path
+# temporal one besides); the Swin-B's 46 LayerNorms of at most 768 values
+# (the embedding's, 2 a block in stages 1-3, the first merge's; the 7 wider
+# take the plain path) and no attention kernel (its core adds a bias and has
+# heads of 32). Every wrapper of _ZERO_UNLESS_LISTED that a path
 # does not list launches 0 times: the first twelve and a thirteenth, the
 # attention core (0 on every B4 path).
 PATHS = {
@@ -193,6 +198,8 @@ PATHS = {
     "J TimeSformer-Base, default pooled warp": {"crop_pool": 1, "warp_affine_legacy": 1,
                                                 **_NO_EPILOGUES, "layer_norm": 37,
                                                 "self_attention": 24},
+    "K Swin-B, default pooled warp": {"crop_pool": 1, "warp_affine_legacy": 1,
+                                      **_NO_EPILOGUES, "layer_norm": 46, "self_attention": 0},
 }
 _ZERO_UNLESS_LISTED = [k.__name__ for k in kernels()[:12]] + [sa.self_attention.__name__]
 # The batches each path is served at: 32 and the benchmark cells' 128; the
@@ -219,13 +226,14 @@ def build_pipeline(path, dtype=torch.bfloat16, device=None, scales=None):
                              output_size=FACE, int8_act_scales=tail_scales,
                              det_act_scales=det_scales, use_s2d_early=path[0] == "G",
                              warp_tap_mode="int8" if path[0] == "E" else "legacy", **common)
-    elif path[0] in "BDFHIJ":  # default warp arguments and face size
+    elif path[0] in "BDFHIJK":  # default warp arguments and face size
         extra = (dict(detector_arch="lite", keep_top_k=MULTI_K, warp_tap_mode="uw16")
                  if path[0] == "F" else {})
         if path[0] == "H":  # MTCNN-Lite serves at a pool ratio of 1: a 640² canvas
             extra = dict(detector_arch="mtcnn")
             common["detection_input_size"] = SERVING
-        config = {"I": {"model": VIT_MODEL}, "J": {"model": TSF_MODEL}}.get(path[0], MODEL_CONFIG)
+        config = {"I": {"model": VIT_MODEL}, "J": {"model": TSF_MODEL},
+                  "K": {"model": SWIN_MODEL}}.get(path[0], MODEL_CONFIG)
         pipe = FusedPipeline(config, use_fused_backbone=path[0] == "D", **extra, **common)
         assert (pipe.warp_window, pipe.warp_fractional, pipe.output_size) == (160, False, (224, 224))
     else:
@@ -277,6 +285,7 @@ CARD_VS_CPU = {
     "F multi-face, lite detector": {**TIGHT, "confidence": 1e-3, "face_valid": 0.0},
     "G s2d + int8 headline": INT8_LIMITS, "H mtcnn detector": TIGHT,
     "I ViT-B/16, default pooled warp": TIGHT, "J TimeSformer-Base, default pooled warp": TIGHT,
+    "K Swin-B, default pooled warp": TIGHT,
 }
 
 
@@ -336,7 +345,7 @@ def test_served_batch_launches_the_paths_kernels(dev, path, n):
         out = pipe.forward(frames)
     assert launches == want
     lead = (n, pipe.keep_top_k) if pipe.keep_top_k > 1 else (n,)
-    feat = pipe.model.width if path[0] in "IJ" else pipe.model.feature_extractor.feature_dim
+    feat = pipe.model.width if path[0] in "IJK" else pipe.model.feature_extractor.feature_dim
     assert out["probs"].shape == (*lead, 2) and out["features"].shape == (*lead, feat)
     for key in ("probs", "bbox", "landmarks", "quality", "features", "fake_prob"):
         assert torch.isfinite(out[key].float()).all(), key
